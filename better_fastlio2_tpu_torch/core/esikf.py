@@ -1,0 +1,318 @@
+"""Iterated error-state Kalman filter (ESIKF) — predict and update.
+
+Port of better_fastlio2_tpu/core/esikf.py (IKFoM esekfom.hpp `predict` at
+:280 and `update_iterated_dyn_share_modified` at :1620) on torch tensors.
+
+What this slice carries: the prediction Jacobians (batched over any leading
+dims — the IMU chain builds all of a scan's steps at once) and the Gram
+(Woodbury) path of `update_iterated`, which consumes the (8, 8) normal
+equations of ops/kernels.fused_normal_eqs.  The row path (the
+`extrinsic_est_en=True` configuration) waits for the slice that ports the
+fused_hth kernel.
+
+The JAX reference runs the iteration as one lax.while_loop on the device;
+here it is a host loop that reads one flag per pass (utils.device.to_host
+counts it).  The reference's `_mm`/`_mv` (tiny products written as
+broadcast reduces to stay inside XLA fusions) are plain `@` here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..utils import s2 as s2m
+from ..utils import so3
+from ..utils.device import to_host
+from .state import ERR_DIM, NOISE_DIM, State, boxminus, boxplus, oplus_flat
+
+__all__ = ["get_f", "df_dx", "df_dw", "predict_mean", "predict_jacobians",
+           "predict", "MeasurementOut", "update_iterated"]
+
+
+def _eye(n, ref: torch.Tensor, batch=()) -> torch.Tensor:
+    e = torch.eye(n, dtype=ref.dtype, device=ref.device)
+    return e.expand(*batch, n, n).clone() if batch else e
+
+
+def get_f(x: State, acc: torch.Tensor, gyro: torch.Tensor) -> torch.Tensor:
+    """Flat state derivative f(x, u): 24-vector (use-ikfom.hpp:56-68)."""
+    omega = gyro - x.bg
+    a_inertial = so3.quat_rotate(x.rot, acc - x.ba)
+    z3 = torch.zeros_like(x.vel)
+    return torch.cat([x.vel, omega, z3, z3, a_inertial + x.grav, z3, z3, z3],
+                     dim=-1)
+
+
+def df_dx(x: State, acc: torch.Tensor, gyro: torch.Tensor) -> torch.Tensor:
+    """∂f/∂(error state): 24x23 (use-ikfom.hpp:70-86)."""
+    batch = x.pos.shape[:-1]
+    J = x.pos.new_zeros(*batch, 24, ERR_DIM)
+    R = so3.quat_to_matrix(x.rot)
+    eye3 = _eye(3, x.pos)
+    J[..., 0:3, 12:15] = eye3
+    J[..., 12:15, 3:6] = -R @ so3.hat(acc - x.ba)
+    J[..., 12:15, 18:21] = -R
+    J[..., 12:15, 21:23] = s2m.s2_mx(x.grav, x.pos.new_zeros(*batch, 2))
+    J[..., 3:6, 15:18] = -eye3
+    return J
+
+
+def df_dw(x: State) -> torch.Tensor:
+    """∂f/∂(noise): 24x12 (use-ikfom.hpp:89-97), noise [ng, na, nbg, nba]."""
+    batch = x.pos.shape[:-1]
+    J = x.pos.new_zeros(*batch, 24, NOISE_DIM)
+    eye3 = _eye(3, x.pos)
+    J[..., 3:6, 0:3] = -eye3
+    J[..., 12:15, 3:6] = -so3.quat_to_matrix(x.rot)
+    J[..., 15:18, 6:9] = eye3
+    J[..., 18:21, 9:12] = eye3
+    return J
+
+
+def _flat_to_err_rows(M_flat, x_new: State, x_before: State, seg_rot,
+                      seg_ext, seg_s2) -> torch.Tensor:
+    """Project a 24-row flat Jacobian onto the 23 error rows (esekfom.hpp:
+    291-372): vect rows copy through, SO3 rows are premultiplied by A(seg),
+    the S2 pair by -Nx Exp(seg) hat(grav_before) A(seg)^T."""
+    A_rot = so3.A_matrix(seg_rot)
+    A_ext = so3.A_matrix(seg_ext)
+    Nx = s2m.s2_nx_yy(x_new.grav)
+    R_s2 = so3.so3_exp_matrix(seg_s2)
+    hat_g = so3.hat(x_before.grav)
+    S2_map = -Nx @ R_s2 @ hat_g @ so3.A_matrix(seg_s2).transpose(-1, -2)
+    return torch.cat(
+        [
+            M_flat[..., 0:3, :],
+            A_rot @ M_flat[..., 3:6, :],
+            A_ext @ M_flat[..., 6:9, :],
+            M_flat[..., 9:21, :],
+            S2_map @ M_flat[..., 21:24, :],
+        ],
+        dim=-2,
+    )
+
+
+def predict_mean(x: State, acc: torch.Tensor, gyro: torch.Tensor,
+                 dt) -> State:
+    """Mean-only forward step x ⊞ f(x,u)·dt (esekfom.hpp:280-287)."""
+    return oplus_flat(x, get_f(x, acc, gyro), dt)
+
+
+def predict_jacobians(x: State, x_new: State, acc: torch.Tensor,
+                      gyro: torch.Tensor, dt) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """(F_x, F_w) of the step x -> x_new (esekfom.hpp:290-402).  Batched:
+    every field may carry leading dims, `dt` is then shaped like them (the
+    JAX reference vmaps this function over a scan's IMU steps)."""
+    f_flat = get_f(x, acc, gyro)
+    fx_flat = df_dx(x, acc, gyro)
+    fw_flat = df_dw(x)
+    dt = torch.as_tensor(dt, dtype=x.dtype, device=x.device)
+    dtv = dt[..., None]
+
+    seg_rot = -f_flat[..., 3:6] * dtv
+    seg_ext = -f_flat[..., 6:9] * dtv
+    seg_s2 = f_flat[..., 21:24] * dtv
+
+    batch = x.pos.shape[:-1]
+    F_x1 = _eye(ERR_DIM, x.pos, batch)
+    F_x1[..., 3:6, 3:6] = so3.so3_exp_matrix(seg_rot)
+    F_x1[..., 6:9, 6:9] = so3.so3_exp_matrix(seg_ext)
+    Nx = s2m.s2_nx_yy(x_new.grav)
+    Mx = s2m.s2_mx(x.grav, x.pos.new_zeros(*batch, 2))
+    F_x1[..., 21:23, 21:23] = Nx @ so3.so3_exp_matrix(seg_s2) @ Mx
+
+    fx_err = _flat_to_err_rows(fx_flat, x_new, x, seg_rot, seg_ext, seg_s2)
+    fw_err = _flat_to_err_rows(fw_flat, x_new, x, seg_rot, seg_ext, seg_s2)
+    dtm = dt[..., None, None]
+    return F_x1 + fx_err * dtm, fw_err * dtm
+
+
+def predict(x: State, P: torch.Tensor, acc: torch.Tensor, gyro: torch.Tensor,
+            dt, Q: torch.Tensor) -> tuple[State, torch.Tensor]:
+    """One forward step: x <- x ⊞ f·dt, P <- F_x P F_x^T + F_w Q F_w^T.
+    dt = 0 leaves x and P unchanged."""
+    x_new = predict_mean(x, acc, gyro, dt)
+    F_x, F_w = predict_jacobians(x, x_new, acc, gyro, dt)
+    return x_new, F_x @ P @ F_x.T + F_w @ Q @ F_w.T
+
+
+class MeasurementOut(NamedTuple):
+    """Output of a dyn-share measurement model, fused form.
+
+    gram:     (8, 8) normal equations from ops/kernels.fused_normal_eqs:
+              gram[:6,:6] = H^T W H, gram[:6,6] = H^T W h, gram[7,7] =
+              n_valid.
+    aux:      association cache threaded back to the model.
+    early_ok: host bool or None — "a post-convergence re-association
+              would change nothing", letting the update exit on its first
+              converged pass (None keeps reference pass semantics).
+    """
+
+    gram: torch.Tensor
+    aux: object = None
+    early_ok: bool | None = None
+
+
+def _floor_det(det: torch.Tensor) -> torch.Tensor:
+    """Sign-preserving det floor: a near-singular block degrades into a
+    large-but-finite inverse instead of inf/nan."""
+    tiny = torch.full_like(det, 1e-20)
+    return torch.where(torch.abs(det) < tiny,
+                       torch.where(det < 0, -tiny, tiny), det)
+
+
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form 3x3 inverse (adjugate / det)."""
+    a, b, c = M[0, 0], M[0, 1], M[0, 2]
+    d, e, f = M[1, 0], M[1, 1], M[1, 2]
+    g, h, i = M[2, 0], M[2, 1], M[2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d  # noqa: E741
+    det = _floor_det(a * A + b * D + c * G)
+    return torch.stack([torch.stack([A, B, C]), torch.stack([D, E, F]),
+                        torch.stack([G, H, I])]) / det
+
+
+def _inv6(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form 6x6 inverse via the 3x3 block Schur complement — valid
+    for the well-conditioned M6 = I + HTH (P/R) + jitter of the gain."""
+    A, B = M[0:3, 0:3], M[0:3, 3:6]
+    C, D = M[3:6, 0:3], M[3:6, 3:6]
+    Ai = _inv3(A)
+    AiB = Ai @ B
+    CAi = C @ Ai
+    Si = _inv3(D - C @ AiB)
+    TR = -AiB @ Si
+    BL = -Si @ CAi
+    TL = Ai - AiB @ BL
+    return torch.cat([torch.cat([TL, TR], dim=1), torch.cat([BL, Si], dim=1)],
+                     dim=0)
+
+
+def _dx_transport(dx: torch.Tensor, x: State,
+                  x_prop: State) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-diagonal tangent transport T with dx_new = T dx and
+    P <- T P T^T (esekfom.hpp:1662-1703).  Returns (T, dx_new)."""
+    T = _eye(ERR_DIM, dx).clone()
+    T[3:6, 3:6] = so3.A_matrix(dx[3:6]).T
+    T[6:9, 6:9] = so3.A_matrix(dx[6:9]).T
+    T[21:23, 21:23] = s2m.s2_nx_yy(x.grav) @ s2m.s2_mx(x_prop.grav, dx[21:23])
+    return T, T @ dx
+
+
+def _rows_T(M, A3, A6, S2b):
+    """Left-apply the transport blocks to the row blocks of M."""
+    M = M.clone()
+    M[3:6] = A3 @ M[3:6]
+    M[6:9] = A6 @ M[6:9]
+    M[21:23] = S2b @ M[21:23]
+    return M
+
+
+def update_iterated(
+    x_prop: State,
+    P_prop: torch.Tensor,
+    measure_fn: Callable[[State, bool, object], MeasurementOut],
+    aux0: object,
+    max_iter: int = 4,
+    R: float = 0.001,
+    limit: float = 0.001,
+    n_cols: int = 6,
+):
+    """Iterated dyn-share update (esekfom.hpp:1620-1938), Gram path.
+
+    measure_fn(x, converged, aux) -> MeasurementOut; `converged` mirrors
+    dyn_share.converge.  Pass control follows the reference exactly: up to
+    max_iter+1 passes, `t` counts converged passes, the loop exits when
+    t > 1 or the budget is spent, and the converge flag is forced on the
+    penultimate pass; with `early_ok` the loop may exit on the first
+    converged pass.  One device->host read per pass (the converged flag).
+
+    The gain uses the Woodbury form (P/R)[:, :K] (I_K + HTH (P/R)[:K,:K])^-1
+    with the closed-form 6x6 inverse; the final covariance is the Joseph
+    form, PSD by construction (the reference's L - K_x P cancels in f32).
+
+    Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff}.
+    """
+    if n_cols != 6:
+        raise NotImplementedError(
+            "the row path (extrinsic estimation, n_cols=12) comes with the "
+            "slice that ports the fused_hth kernel")
+    dtype = P_prop.dtype
+    K = n_cols
+    eyeK = _eye(K, P_prop)
+
+    x, t, conv, aux, i = x_prop, 0, True, aux0, 0
+    A3 = A6 = _eye(3, P_prop)
+    S2b = _eye(2, P_prop)
+    P_inv12 = P_prop.new_zeros(ERR_DIM, K)
+    HTH = P_prop.new_zeros(K, K)
+    dx_ = P_prop.new_zeros(ERR_DIM)
+    n_eff = P_prop.new_zeros(())
+    while True:
+        m = measure_fn(x, conv, aux)
+        G = m.gram.to(dtype)
+        HTH = G[:K, :K]
+        HTh = G[:K, 6]
+        n_valid = G[7, 7]
+
+        dx = boxminus(x, x_prop)
+        valid = n_valid >= 1.0  # laserMapping.cpp:1956-1961 guard
+        A3 = so3.A_matrix(dx[3:6]).T
+        A6 = so3.A_matrix(dx[6:9]).T
+        S2b = s2m.s2_nx_yy(x.grav) @ s2m.s2_mx(x_prop.grav, dx[21:23])
+        dx_new = torch.cat([dx[0:3], A3 @ dx[3:6], A6 @ dx[6:9],
+                            dx[9:21], S2b @ dx[21:23]])
+        # C = (T P_prop T^T)[:, :K]: right-apply T's leading K rows, then
+        # left-apply its row blocks
+        C = _rows_T(torch.cat([P_prop[:, 0:3], P_prop[:, 3:6] @ A3.T],
+                              dim=1), A3, A6, S2b)
+        P6 = C / R
+        M6 = eyeK + HTH @ P6[:K]
+        # relative diagonal damping (~1e-6 of the scale): keeps the solve
+        # bounded if P drifts near-indefinite under f32 accumulation
+        M6 = M6 + (1e-6 / K) * torch.sum(torch.abs(torch.diagonal(M6))) * eyeK
+        P_inv12 = P6 @ _inv6(M6)
+        K_h = P_inv12 @ HTh
+        dx_ = K_h + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
+
+        x = State(*(torch.where(valid, a, b)
+                    for a, b in zip(boxplus(x, dx_), x)))
+        converged = bool(to_host(
+            torch.all(torch.abs(dx_) < limit) | torch.logical_not(valid)))
+        n_eff = n_valid
+        t_new = t + 1 if converged else t
+        conv = converged or (t_new == 0 and i == max_iter - 1)
+        done = t_new > 1 or i >= max_iter
+        if m.early_ok is not None:
+            done = done or (converged and m.early_ok)
+        t, aux, i = t_new, m.aux, i + 1
+        if done:
+            break
+
+    # Joseph-form final covariance (esekfom.hpp:1841-1931 in Joseph form):
+    #   P <- (I - K H) P_last (I - K H)^T + R P_inv12 HTH P_inv12^T,
+    # then the manifold transport of the final increment
+    Pl = _rows_T(P_prop, A3, A6, S2b)
+    P_last = _rows_T(Pl.T, A3, A6, S2b).T
+    P_last = 0.5 * (P_last + P_last.T)
+    K_x_last = P_prop.new_zeros(ERR_DIM, ERR_DIM)
+    K_x_last[:, :K] = P_inv12 @ HTH
+    T_fin, _ = _dx_transport(dx_, x, x_prop)
+    IKH = _eye(ERR_DIM, P_prop) - K_x_last
+    KRK = R * (P_inv12 @ HTH @ P_inv12.T)
+    P_joseph = IKH @ P_last @ IKH.T + KRK
+    P_post = T_fin @ P_joseph @ T_fin.T
+    P_post = 0.5 * (P_post + P_post.T)
+    info = {"iters": i, "t": t, "n_eff": n_eff}
+    return x, P_post, aux, info

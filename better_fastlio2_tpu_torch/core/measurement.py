@@ -1,0 +1,253 @@
+"""Point-to-plane measurement model (h_share_model) — batched and masked.
+
+Port of better_fastlio2_tpu/core/measurement.py for the fused solve path:
+the scan is associated once by 5-NN over the voxel map plus a closed-form
+plane fit (common_lib.h esti_plane), packed into the (16, N) SoA buffer,
+and every ESIKF pass reduces it to the normal equations with
+ops/kernels.fused_normal_eqs.  A lazy re-association refreshes, at most
+once per scan, the rows whose voxel moved when more than 5% moved.
+
+The reference's lax.cond sites become host branches: each solve pass reads
+n_moved (one device->host read), and a refresh compacts its rows with
+torch.nonzero (one more).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from ..map import voxel_hash
+from ..ops.kernels import fused_normal_eqs, pack_soa
+from ..utils import so3
+from ..utils.device import nonzero, to_host
+from .esikf import MeasurementOut
+from .state import State
+
+__all__ = ["plane_fit", "MeasureAux", "make_measure_fn",
+           "transform_to_world"]
+
+NUM_MATCH_POINTS = 5  # NN count (common_lib.h NUM_MATCH_POINTS)
+MAX_NN_DIST2 = 5.0  # 5th-NN gate (laserMapping.cpp:1909-1912)
+PLANE_INLIER_THRESH = 0.1  # esti_plane threshold (laserMapping.cpp:1922)
+
+
+def _sym3_smallest_eig(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(eigenvector, eigenvalue) of the smallest eigenvalue of batched
+    symmetric 3x3 matrices in closed form (Cardano's trigonometric roots,
+    cross-product eigenvector).  Degenerate inputs return an arbitrary
+    unit vector (callers gate on residuals)."""
+    a00, a11, a22 = C[..., 0, 0], C[..., 1, 1], C[..., 2, 2]
+    a01, a02, a12 = C[..., 0, 1], C[..., 0, 2], C[..., 1, 2]
+    p1 = a01 * a01 + a02 * a02 + a12 * a12
+    qm = (a00 + a11 + a22) / 3.0
+    p2 = (a00 - qm) ** 2 + (a11 - qm) ** 2 + (a22 - qm) ** 2 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=1e-30))
+    eye = torch.eye(3, dtype=C.dtype, device=C.device)
+    Bm = (C - qm[..., None, None] * eye) / p[..., None, None]
+    detB = (
+        Bm[..., 0, 0] * (Bm[..., 1, 1] * Bm[..., 2, 2] - Bm[..., 1, 2] ** 2)
+        - Bm[..., 0, 1]
+        * (Bm[..., 0, 1] * Bm[..., 2, 2] - Bm[..., 1, 2] * Bm[..., 0, 2])
+        + Bm[..., 0, 2]
+        * (Bm[..., 0, 1] * Bm[..., 1, 2] - Bm[..., 1, 1] * Bm[..., 0, 2])
+    )
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    lam_min = qm + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+
+    # eigenvector: null space of (C - lam I) via the largest row cross
+    M = C - lam_min[..., None, None] * eye
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    c01 = so3.cross(r0, r1)
+    c02 = so3.cross(r0, r2)
+    c12 = so3.cross(r1, r2)
+    n01 = torch.sum(c01 * c01, dim=-1)
+    n02 = torch.sum(c02 * c02, dim=-1)
+    n12 = torch.sum(c12 * c12, dim=-1)
+    best = torch.where(
+        ((n01 >= n02) & (n01 >= n12))[..., None], c01,
+        torch.where((n02 >= n12)[..., None], c02, c12))
+    nrm = torch.linalg.vector_norm(best, dim=-1, keepdim=True)
+    fallback = torch.zeros_like(best)
+    fallback[..., 2] = 1.0
+    vec = torch.where(nrm > 1e-20, best / torch.clamp(nrm, min=1e-20),
+                      fallback)
+    return vec, lam_min
+
+
+def plane_fit(neighbors: torch.Tensor, valid: torch.Tensor,
+              thresh: float = PLANE_INLIER_THRESH
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plane n·p + d = 0 through k neighbours, batched: the centred PCA fit
+    (normal = smallest eigenvector of the scatter matrix), d > 0 sign
+    convention, valid when every residual |n·p + d| <= thresh
+    (common_lib.h:526-533).  neighbors (N, k, 3), valid (N,) ->
+    (normal (N,3), d (N,), plane_ok (N,))."""
+    A = neighbors
+    c = torch.mean(A, dim=1, keepdim=True)
+    q = A - c
+    C = torch.einsum("nki,nkj->nij", q, q)
+    n = _sym3_smallest_eig(C)[0]
+    d = -torch.sum(n * c[:, 0, :], dim=-1)
+    sgn = torch.where(d < 0, -1.0, 1.0).to(d.dtype)
+    n = n * sgn[:, None]
+    d = d * sgn
+    resid = torch.abs(torch.einsum("nki,ni->nk", A, n) + d[:, None])
+    plane_ok = valid & torch.all(resid <= thresh, dim=-1)
+    return n, d, plane_ok
+
+
+class MeasureAux(NamedTuple):
+    """Association cache threaded through the ESIKF passes (the analog of
+    Nearest_Points / point_selected_surf, laserMapping.cpp:117,1903-1913).
+    `searched` and `refreshed` are host bools."""
+
+    normal: torch.Tensor  # (N, 3) plane unit normals (world)
+    d: torch.Tensor  # (N,) plane offsets, n·p + d = 0
+    fit_ok: torch.Tensor  # (N,) nn_ok & plane residuals within threshold
+    searched: bool  # an association pass has run
+    assoc_ijk: torch.Tensor  # (N, 3) int32 voxel of each point at assoc
+    refreshed: bool  # the one lazy refresh pass has run
+    soa: torch.Tensor | None = None  # (16, N) fused-solve buffer
+
+
+def transform_to_world(s: State, pts_body: torch.Tensor) -> torch.Tensor:
+    """p_world = R_wi (R_il p + t_il) + t_wi (laserMapping.cpp:1895)."""
+    p_imu = so3.quat_rotate(s.off_r, pts_body) + s.off_t
+    return so3.quat_rotate(s.rot, p_imu) + s.pos
+
+
+def _budgeted_refresh(aux: MeasureAux, p_world, ijk_now, pts_valid,
+                      search_rows, refresh_budget: int, extra_update=None):
+    """Lazy re-association: rows whose voxel moved since the full pass get
+    fresh planes, the first `refresh_budget` of them in ascending index
+    order (deterministic).  The row set is found with torch.nonzero (one
+    device->host read) and keeps its data-dependent length: eager PyTorch
+    needs no fixed shape, so the reference's fill rows (size=budget,
+    fill_value=N, all dropped) are not materialised.
+    `extra_update(aux, sel, n_s, d_s, ok_s)` refreshes the SoA columns in
+    the same pass."""
+    need = (pts_valid & aux.searched
+            & torch.any(ijk_now != aux.assoc_ijk, dim=-1))
+    sel = nonzero(need)[:refresh_budget]
+    n_s, d_s, ok_s = search_rows(p_world[sel], torch.ones_like(sel,
+                                                               dtype=bool))
+    normal, d = aux.normal.clone(), aux.d.clone()
+    fit_ok, assoc_ijk = aux.fit_ok.clone(), aux.assoc_ijk.clone()
+    normal[sel], d[sel], fit_ok[sel] = n_s, d_s, ok_s
+    assoc_ijk[sel] = ijk_now[sel]
+    aux = aux._replace(normal=normal, d=d, fit_ok=fit_ok,
+                       assoc_ijk=assoc_ijk, refreshed=True)
+    if extra_update is not None:
+        aux = extra_update(aux, sel, n_s, d_s, ok_s)
+    return aux
+
+
+def make_measure_fn(
+    m: voxel_hash.VoxelHashMap,
+    pts_body: torch.Tensor,
+    pts_valid: torch.Tensor,
+    max_probe: int = 16,
+    n_neighbors: int = 27,
+    max_live: int = 0,
+    refresh_budget: int = 4096,
+    early_converge: bool = False,
+):
+    """measure_fn(state, converged, aux) -> MeasurementOut closure over a
+    fixed scan and map, for esikf.update_iterated, plus its initial aux.
+
+    This slice carries the fused configuration only (pipeline/lio.py
+    check_config refuses the rest): single_association (one full
+    association per scan, then the lazy budgeted refresh), fused_solve (the
+    Gram path through ops/kernels.fused_normal_eqs) and extrinsic
+    estimation off.  early_converge lets the update exit on the first
+    converged pass when under 5% of the rows changed voxel.
+    """
+
+    def search_rows(p_w, rows_valid):
+        """Association of a row set -> (n, d, ok)."""
+        nb, d2, ok = voxel_hash.knn(
+            m, p_w, k=NUM_MATCH_POINTS, max_probe=max_probe,
+            n_neighbors=n_neighbors, max_live=max_live)
+        nn_ok = (torch.all(ok, dim=-1)
+                 & (d2[:, NUM_MATCH_POINTS - 1] <= MAX_NN_DIST2) & rows_valid)
+        return plane_fit(nb, nn_ok)
+
+    return _make_fused_measure(m, pts_body, pts_valid, search_rows,
+                               refresh_budget, early_converge=early_converge)
+
+
+def _make_fused_measure(m, pts_body, pts_valid, search_rows,
+                        refresh_budget: int, early_converge: bool = False):
+    """The fused-solve measure closure (see make_measure_fn)."""
+    N = pts_body.shape[0]
+    dtype = pts_body.dtype
+    invb = 0.9 / torch.sqrt(torch.clamp(
+        torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
+    vs = m.voxel_size.to(dtype)
+    n_val_scan = float(to_host(torch.sum(pts_valid.to(dtype))))
+
+    def build_aux(s, aux):
+        p_world = transform_to_world(s, pts_body)
+        ijk = voxel_hash._voxel_of(p_world, m.voxel_size)
+        n, d, ok = search_rows(p_world, pts_valid)
+        p_imu = so3.quat_rotate(s.off_r, pts_body) + s.off_t
+        soa = pack_soa(p_imu, n, d, invb, ok, ijk, pts_valid)
+        return aux._replace(normal=n, d=d, fit_ok=ok, searched=True,
+                            assoc_ijk=ijk, refreshed=False,
+                            soa=soa.contiguous())
+
+    def measure(s: State, converged: bool, aux: MeasureAux) -> MeasurementOut:
+        if not aux.searched:
+            with record_function("lio.associate"):
+                aux = build_aux(s, aux)
+        # the pose goes to the kernel as f32 even in f64 runs (the
+        # reference rounds R and t there too)
+        params = torch.cat([
+            so3.quat_to_matrix(s.rot).reshape(-1), s.pos, vs[None],
+            torch.zeros(3, dtype=dtype, device=vs.device),
+        ]).to(torch.float32)
+        G, n_moved_t = fused_normal_eqs(aux.soa, params)
+        n_moved = to_host(n_moved_t)
+
+        if (refresh_budget > 0 and converged and not aux.refreshed
+                and n_moved * 20.0 > n_val_scan):
+            p_world = transform_to_world(s, pts_body)
+            ijk_now = voxel_hash._voxel_of(p_world, m.voxel_size)
+
+            def update_soa(aux, sel, n_s, d_s, ok_s):
+                p_imu_s = so3.quat_rotate(s.off_r, pts_body[sel]) + s.off_t
+                cols = pack_soa(p_imu_s, n_s, d_s, invb[sel], ok_s,
+                                ijk_now[sel], pts_valid[sel])
+                soa = aux.soa.clone()
+                soa[:, sel] = cols
+                return aux._replace(soa=soa)
+
+            with record_function("lio.refresh"):
+                aux = _budgeted_refresh(aux, p_world, ijk_now, pts_valid,
+                                        search_rows, refresh_budget,
+                                        extra_update=update_soa)
+            # re-solve over the refreshed association
+            G, n_moved_t = fused_normal_eqs(aux.soa, params)
+            n_moved = to_host(n_moved_t)
+
+        # re-association would change nothing only when the moved fraction
+        # is below the trigger (judged even after the refresh is spent)
+        early_ok = n_moved * 20.0 <= n_val_scan if early_converge else None
+        return MeasurementOut(gram=G, aux=aux, early_ok=early_ok)
+
+    aux0 = MeasureAux(
+        normal=pts_body.new_zeros(N, 3),
+        d=pts_body.new_zeros(N),
+        fit_ok=torch.zeros(N, dtype=torch.bool, device=pts_body.device),
+        searched=False,
+        assoc_ijk=torch.zeros(N, 3, dtype=torch.int32,
+                              device=pts_body.device),
+        refreshed=False,
+        soa=None,
+    )
+    return measure, aux0

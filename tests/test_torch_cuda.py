@@ -1,0 +1,179 @@
+"""The port on the card: K1's CUDA kernel against its plain version, the
+wrapper's refusals, and the per-scan pipeline on CUDA against the CPU.
+
+Every test here needs an NVIDIA GPU (`cuda` marker) and skips without
+one.  The file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerances: G within rtol 1e-5 / atol 1e-3·max|G| and, entry by entry,
+within ops/kernels.fused_normal_eqs_tolerance: 1e-5·sqrt(G_ii·G_jj) (f32
+sums in another order, held to each entry's own size) plus the lanes on
+the edge of the residual gate; n_moved equal except for lanes whose
+p_w/vs lies within 1e-5 of an integer (the kernel's FMA-contracted
+transform may land on either side of a voxel boundary).  Two runs of the
+downsample and of the pipeline on the card are bit-identical (no float
+atomics on the path).  The pipeline on the card against the same
+pipeline on the CPU, a dozen f32 scans: reduction orders differ between
+the devices, the poses drift apart by
+millimetres and a point near a voxel face can land in the neighbouring
+voxel (observed on an H100: positions up to 4.3 mm apart, downsampled
+counts of ~2900 voxels up to 1 apart).  So positions agree within 1 cm,
+counts within 0.2 % (at least 3), and both runs track ground truth
+(ATE < 0.10 m).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from better_fastlio2_tpu_torch.config import (IkdtreeConfig, LIOConfig,
+                                              MappingConfig, ShapesConfig)
+from better_fastlio2_tpu_torch.io.synthetic import (Trajectory,
+                                                    make_lio_sequence)
+from better_fastlio2_tpu_torch.ops import kernels as tk
+from better_fastlio2_tpu_torch.ops.downsample import voxel_downsample
+from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _soa(n, seed):
+    rng = np.random.default_rng(seed)
+    p_imu = rng.normal(size=(n, 3)).astype(np.float32) * 10.0
+    normal = rng.normal(size=(n, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    d = rng.normal(size=n).astype(np.float32)
+    invb = (0.9 / np.sqrt(np.maximum(np.linalg.norm(p_imu, axis=-1),
+                                     1e-8))).astype(np.float32)
+    ok = rng.uniform(size=n) > 0.3
+    ijk = np.floor(p_imu / 0.5).astype(np.int32)
+    ijk[: n // 8] += 1
+    valid = rng.uniform(size=n) > 0.1
+    soa = tk.pack_soa(*(torch.as_tensor(a) for a in
+                        (p_imu, normal, d, invb, ok, ijk, valid)))
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    R = np.array([[w * w + x * x - y * y - z * z, 2 * (x * y - w * z),
+                   2 * (x * z + w * y)],
+                  [2 * (x * y + w * z), w * w - x * x + y * y - z * z,
+                   2 * (y * z - w * x)],
+                  [2 * (x * z - w * y), 2 * (y * z + w * x),
+                   w * w - x * x - y * y + z * z]])
+    params = np.concatenate([R.reshape(-1), rng.normal(size=3), [0.5],
+                             np.zeros(3)]).astype(np.float32)
+    return soa, torch.as_tensor(params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 10277, 1])
+def test_cuda_kernel_matches_plain(cuda, n):
+    soa, params = _soa(n, n)
+    soa, params = soa.to(cuda), params.to(cuda)
+    before = tk.fused_normal_eqs.launches
+    G_k, mv_k = tk.fused_normal_eqs(soa, params)
+    torch.cuda.synchronize()
+    assert tk.fused_normal_eqs.launches == before + 1
+    G_r, mv_r = tk.fused_normal_eqs_reference(soa, params)
+    scale = float(G_r.abs().max())
+    np.testing.assert_allclose(G_k.cpu().numpy(), G_r.cpu().numpy(),
+                               rtol=1e-5, atol=1e-3 * max(scale, 1e-30))
+    G_tol, slack, _ = tk.fused_normal_eqs_tolerance(soa, params)
+    assert bool(((G_k.double() - G_r.double()).abs() <= G_tol).all())
+    assert abs(float(mv_k) - float(mv_r)) <= slack
+    # bit-identical on a rerun: no float atomics
+    G_2, mv_2 = tk.fused_normal_eqs(soa, params)
+    assert torch.equal(G_2, G_k) and float(mv_2) == float(mv_k)
+    G0, mv0 = tk.fused_normal_eqs(torch.zeros_like(soa), params)
+    assert int(torch.count_nonzero(G0)) == 0 and float(mv0) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_bad_inputs(cuda):
+    soa, params = _soa(256, 7)
+    soa, params = soa.to(cuda), params.to(cuda)
+    with pytest.raises(TypeError):
+        tk.fused_normal_eqs(soa.double(), params)
+    with pytest.raises(ValueError):
+        tk.fused_normal_eqs(soa[:, ::2], params)  # not contiguous
+    with pytest.raises(ValueError):
+        tk.fused_normal_eqs(soa[:8].contiguous(), params)
+    with pytest.raises(ValueError):
+        tk.fused_normal_eqs(soa, params.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_downsample_is_deterministic(cuda):
+    rng = np.random.default_rng(11)
+    pts = torch.as_tensor(rng.normal(size=(1 << 15, 3)).astype(np.float32)
+                          * 15.0, device=cuda)
+    valid = torch.as_tensor(rng.uniform(size=1 << 15) > 0.1, device=cuda)
+    a = voxel_downsample(pts, valid, 0.5, out_size=1 << 14, packed_key=True)
+    b = voxel_downsample(pts, valid, 0.5, out_size=1 << 14, packed_key=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _cfg():
+    cfg = LIOConfig()
+    cfg.shapes = ShapesConfig(
+        n_raw=8192, n_ds=4096, n_imu=32, map_capacity_log2=16, map_bucket=4,
+        map_max_probe=8, knn_chunk=4096, map_dense_log2=(8, 8, 7),
+        knn_max_live=12)
+    cfg.mapping = MappingConfig(det_range=60.0, cube_len=400.0,
+                                surf_leaf_size=0.4, extrinsic_est_en=False)
+    cfg.ikdtree = IkdtreeConfig(max_iteration=3, filter_size_map_min=0.4,
+                                single_association=True)
+    return cfg
+
+
+def _groups():
+    return make_lio_sequence(duration=1.3, n_points=3000, seed=3,
+                             noise=0.004,
+                             traj=Trajectory(t_still=0.5, speed=2.0))
+
+
+def _args(g):
+    return (g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"], g["imu_t"],
+            g["scan_beg_abs"], g["scan_end_t"])
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_is_deterministic(cuda):
+    groups = _groups()
+    runs = []
+    for _ in range(2):
+        p = LIOPipeline(_cfg())
+        for g in groups:
+            p.process_scan(*_args(g))
+        runs.append(np.array(p.trajectory))
+    assert len(runs[0]) >= 10
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_matches_cpu(cuda):
+    groups = _groups()
+    pc = LIOPipeline(_cfg(), device="cpu")
+    pg = LIOPipeline(_cfg())
+    assert pg.device.type == "cuda"
+    before = tk.fused_normal_eqs.launches
+    n, err = 0, []
+    for g in groups:
+        args = _args(g)
+        oc, og = pc.process_scan(*args), pg.process_scan(*args)
+        if oc is None:
+            assert og is None
+            continue
+        n += 1
+        assert abs(og["n_ds"] - oc["n_ds"]) <= max(3, 0.002 * oc["n_ds"])
+        np.testing.assert_allclose(og["pos"], oc["pos"], atol=1e-2)
+        err.append(np.linalg.norm(og["pos"] - (g["gt_pos"] - [0, 0, 1.5])))
+    assert n >= 10
+    assert np.sqrt(np.mean(np.square(err))) < 0.10
+    assert tk.fused_normal_eqs.launches - before >= n - 1

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where a scan's time goes in the PyTorch/CUDA port, on one GPU.
+
+    python tools/profile_torch_scan.py [--warmup 40] [--window 20]
+
+Runs the main path of chip_smoke.py (LIOPipeline at the room bench shapes
+on make_bench_sequence("room")) for --warmup scans, then records --window
+steady scans under torch.profiler (CPU and CUDA activities).  Prints the
+card's name and power limit and one JSON line:
+
+  wall_ms_per_scan        host clock per scan (each scan ends in the info
+                          readback, which waits for the device)
+  device_busy_share       union of the device activity intervals over the
+                          window's wall time (1 - idle share)
+  device_ms_per_scan      summed device time of every kernel and copy
+  launches_per_scan       device activities (kernels and copies) per scan
+  stages                  per record_function span of the step (lio.*),
+                          per scan: host_ms (the span on the host clock),
+                          kernel_ms (device time of the activities it
+                          launched), device_span_ms (first to last of those
+                          on the device timeline) and launches_per_scan;
+                          lio.update includes lio.associate and lio.refresh
+  k1_device_us_per_call   device time of fused_normal_eqs' two kernels
+                          (neq_stage1 + neq_stage2) per call
+  top_kernels             the 15 largest device-time entries by name
+
+Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def _dev_time(ev) -> float:
+    """Device microseconds of a profiler event (name differs by version)."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(ev, name):
+            return float(getattr(ev, name))
+    return 0.0
+
+
+def _launches(ev) -> int:
+    """Device activities launched inside a host event and its children."""
+    return len(ev.kernels) + sum(_launches(c) for c in ev.cpu_children)
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--warmup", type=int, default=40)
+    ap.add_argument("--window", type=int, default=20)
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from better_fastlio2_tpu_torch.io.synthetic import make_bench_sequence
+    from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
+    card = cs.card_line()
+    groups = make_bench_sequence("room", args.warmup + args.window + 1)
+    pipe = LIOPipeline(cs.room_config())
+
+    def feed(g):
+        return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                                 g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
+                                 g["scan_end_t"])
+
+    for g in groups[:args.warmup]:
+        feed(g)
+    torch.cuda.synchronize()
+    window = groups[args.warmup:args.warmup + args.window]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for g in window:
+            feed(g)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    n = len(window)
+
+    events = prof.events()
+    spans = [e for e in events if e.name.startswith("lio.")]
+    # kineto reports each record_function range twice: as the host range
+    # and as a device "user annotation" spanning its kernels; the latter
+    # are not device activities of their own
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("lio.")]
+    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in dev)
+    dev_us = sum(e.time_range.elapsed_us() for e in dev)
+    stages: dict[str, dict] = {}
+    for e in spans:
+        st = stages.setdefault(e.name, {"host_ms": 0.0, "kernel_ms": 0.0,
+                                        "device_span_ms": 0.0,
+                                        "launches": 0, "calls": 0})
+        if e.device_type == DeviceType.CUDA:
+            st["device_span_ms"] += e.time_range.elapsed_us() / 1e3 / n
+        else:
+            st["host_ms"] += e.time_range.elapsed_us() / 1e3 / n
+            st["kernel_ms"] += _dev_time(e) / 1e3 / n
+            st["launches"] += _launches(e)
+            st["calls"] += 1
+    for st in stages.values():
+        st["launches_per_scan"] = st.pop("launches") / n
+        st["calls_per_scan"] = st.pop("calls") / n
+    by_name: dict[str, list] = {}
+    for e in dev:
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += e.time_range.elapsed_us()
+        rec[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    k1 = {k: v for k, v in by_name.items() if "neq_stage" in k}
+    k1_calls = sum(v[1] for k, v in k1.items() if "neq_stage1" in k)
+    print(card, flush=True)
+    print(json.dumps({
+        "scans": n, "first_scan": args.warmup,
+        "wall_ms_per_scan": 1e3 * wall_s / n,
+        "device_busy_share": busy_us / (1e6 * wall_s),
+        "device_ms_per_scan": dev_us / 1e3 / n,
+        "launches_per_scan": len(dev) / n,
+        "stages": stages,
+        "k1_calls_per_scan": k1_calls / n,
+        "k1_device_us_per_call": (sum(v[0] for v in k1.values()) / k1_calls
+                                  if k1_calls else None),
+        "top_kernels": [{"name": k[:120], "device_ms_per_scan": v[0] / 1e3 / n,
+                         "per_scan": v[1] / n} for k, v in top],
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()
