@@ -3,12 +3,14 @@
 Port of better_fastlio2_tpu/core/esikf.py (IKFoM esekfom.hpp `predict` at
 :280 and `update_iterated_dyn_share_modified` at :1620) on torch tensors.
 
-What this slice carries: the prediction Jacobians (batched over any leading
-dims — the IMU chain builds all of a scan's steps at once) and the Gram
-(Woodbury) path of `update_iterated`, which consumes the (8, 8) normal
-equations of ops/kernels.fused_normal_eqs.  The row path (the
-`extrinsic_est_en=True` configuration) waits for the slice that ports the
-fused_hth kernel.
+The prediction Jacobians are batched over any leading dims (the IMU chain
+builds all of a scan's steps at once).  `update_iterated` has the
+reference's two gain paths, chosen structurally by what the measure
+emits: the Gram (Woodbury) path, which consumes the (8, 8) normal
+equations of ops/kernels.fused_normal_eqs, and the row path (the 23x23
+Cholesky gain), which reduces masked Jacobian rows itself or consumes
+normal equations the measure reduced (the LIO measure, through
+ops/kernels.fused_hth).
 
 The JAX reference runs the iteration as one lax.while_loop on the device;
 here it is a host loop that reads one flag per pass (utils.device.to_host
@@ -140,20 +142,32 @@ def predict(x: State, P: torch.Tensor, acc: torch.Tensor, gyro: torch.Tensor,
 
 
 class MeasurementOut(NamedTuple):
-    """Output of a dyn-share measurement model, fused form.
+    """Output of a dyn-share measurement model (dyn_share_datastruct
+    analog, esekfom.hpp:80-89).  A model fills one of three forms:
 
+    h_x, h, mask: (N, K) Jacobian rows (reference column order: 0:3
+              d/dpos, 3:6 d/drot, 6:9 d/dext_R, 9:12 d/dext_T), (N,)
+              residuals (the reference stores -pd2) and the (N,) bool mask
+              of valid rows; the row path reduces them itself.
+    neq:      (HTH (K, K), HTh (K,), n_valid ()) — normal equations the
+              model reduced itself (the LIO measure, through
+              ops/kernels.fused_hth); consumed by the row path.
     gram:     (8, 8) normal equations from ops/kernels.fused_normal_eqs:
               gram[:6,:6] = H^T W H, gram[:6,6] = H^T W h, gram[7,7] =
-              n_valid.
+              n_valid; selects the Gram (Woodbury) path.
     aux:      association cache threaded back to the model.
     early_ok: host bool or None — "a post-convergence re-association
               would change nothing", letting the update exit on its first
               converged pass (None keeps reference pass semantics).
     """
 
-    gram: torch.Tensor
+    h_x: torch.Tensor | None = None
+    h: torch.Tensor | None = None
+    mask: torch.Tensor | None = None
     aux: object = None
+    gram: torch.Tensor | None = None
     early_ok: bool | None = None
+    neq: tuple | None = None
 
 
 def _floor_det(det: torch.Tensor) -> torch.Tensor:
@@ -199,6 +213,34 @@ def _inv6(M: torch.Tensor) -> torch.Tensor:
                      dim=0)
 
 
+def _inv2(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form 2x2 inverse with the sign-preserving det floor."""
+    det = _floor_det(M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0])
+    return torch.stack([torch.stack([M[1, 1], -M[0, 1]]),
+                        torch.stack([-M[1, 0], M[0, 0]])]) / det
+
+
+def _transport_inv(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of the block-diagonal transport of _dx_transport: identity
+    except the two SO3 3x3 blocks and the S2 2x2 block, each inverted in
+    closed form."""
+    Ti = _eye(ERR_DIM, T).clone()
+    Ti[3:6, 3:6] = _inv3(T[3:6, 3:6])
+    Ti[6:9, 6:9] = _inv3(T[6:9, 6:9])
+    Ti[21:23, 21:23] = _inv2(T[21:23, 21:23])
+    return Ti
+
+
+def _cho_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^-1 B for SPD A by Cholesky, as jax.scipy.linalg.cho_solve(
+    (cholesky(A), True), B): a failed factorisation gives NaN (the
+    reference's silent NaN), and nothing is checked on the host, so the
+    call adds no device->host synchronisation."""
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.cholesky_solve(B, L, upper=False)
+
+
 def _dx_transport(dx: torch.Tensor, x: State,
                   x_prop: State) -> tuple[torch.Tensor, torch.Tensor]:
     """Block-diagonal tangent transport T with dx_new = T dx and
@@ -227,9 +269,9 @@ def update_iterated(
     max_iter: int = 4,
     R: float = 0.001,
     limit: float = 0.001,
-    n_cols: int = 6,
+    n_cols: int = 12,
 ):
-    """Iterated dyn-share update (esekfom.hpp:1620-1938), Gram path.
+    """Iterated dyn-share update (esekfom.hpp:1620-1938).
 
     measure_fn(x, converged, aux) -> MeasurementOut; `converged` mirrors
     dyn_share.converge.  Pass control follows the reference exactly: up to
@@ -238,19 +280,22 @@ def update_iterated(
     penultimate pass; with `early_ok` the loop may exit on the first
     converged pass.  One device->host read per pass (the converged flag).
 
-    The gain uses the Woodbury form (P/R)[:, :K] (I_K + HTH (P/R)[:K,:K])^-1
-    with the closed-form 6x6 inverse; the final covariance is the Joseph
-    form, PSD by construction (the reference's L - K_x P cancels in f32).
+    The gain path is chosen by what the measure emits, as the reference
+    detects it structurally:
+    * a Gram (`gram`): the Woodbury form (P/R)[:, :K] (I_K + HTH
+      (P/R)[:K,:K])^-1 with the closed-form 6x6 inverse (K = 6);
+    * otherwise the row path: normal equations from `neq` or reduced from
+      the masked rows, the prior inverse once per scan, and per pass
+      A = R (T P_prop T^T)^-1 + HTH in its [:K, :K] block, solved by
+      Cholesky for the K gain columns.
+    The final covariance is the Joseph form, PSD by construction (the
+    reference's L - K_x P cancels in f32).
 
     Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff}.
     """
-    if n_cols != 6:
-        raise NotImplementedError(
-            "the row path (extrinsic estimation, n_cols=12) comes with the "
-            "slice that ports the fused_hth kernel")
     dtype = P_prop.dtype
     K = n_cols
-    eyeK = _eye(K, P_prop)
+    eyeP = _eye(ERR_DIM, P_prop)
 
     x, t, conv, aux, i = x_prop, 0, True, aux0, 0
     A3 = A6 = _eye(3, P_prop)
@@ -259,30 +304,67 @@ def update_iterated(
     HTH = P_prop.new_zeros(K, K)
     dx_ = P_prop.new_zeros(ERR_DIM)
     n_eff = P_prop.new_zeros(())
+    P = P_prop
+    Pp_inv = None
     while True:
         m = measure_fn(x, conv, aux)
-        G = m.gram.to(dtype)
-        HTH = G[:K, :K]
-        HTh = G[:K, 6]
-        n_valid = G[7, 7]
+        fused = m.gram is not None
+        if fused:
+            if K != 6:
+                raise ValueError(f"the Gram path has 6 columns, not {K}")
+            G = m.gram.to(dtype)
+            HTH = G[:K, :K]
+            HTh = G[:K, 6]
+            n_valid = G[7, 7]
+        elif m.neq is not None:
+            HTH, HTh, n_valid = (v.to(dtype) for v in m.neq)
+        else:
+            w = m.mask.to(dtype)
+            h_x = m.h_x * w[:, None]
+            if h_x.shape[1] != K:
+                raise ValueError(f"h_x has {h_x.shape[1]} columns, "
+                                 f"n_cols={K}")
+            n_valid = torch.sum(w)
+            HTH = h_x.T @ h_x
+            HTh = h_x.T @ (m.h * w)
 
         dx = boxminus(x, x_prop)
         valid = n_valid >= 1.0  # laserMapping.cpp:1956-1961 guard
-        A3 = so3.A_matrix(dx[3:6]).T
-        A6 = so3.A_matrix(dx[6:9]).T
-        S2b = s2m.s2_nx_yy(x.grav) @ s2m.s2_mx(x_prop.grav, dx[21:23])
-        dx_new = torch.cat([dx[0:3], A3 @ dx[3:6], A6 @ dx[6:9],
-                            dx[9:21], S2b @ dx[21:23]])
-        # C = (T P_prop T^T)[:, :K]: right-apply T's leading K rows, then
-        # left-apply its row blocks
-        C = _rows_T(torch.cat([P_prop[:, 0:3], P_prop[:, 3:6] @ A3.T],
-                              dim=1), A3, A6, S2b)
-        P6 = C / R
-        M6 = eyeK + HTH @ P6[:K]
-        # relative diagonal damping (~1e-6 of the scale): keeps the solve
-        # bounded if P drifts near-indefinite under f32 accumulation
-        M6 = M6 + (1e-6 / K) * torch.sum(torch.abs(torch.diagonal(M6))) * eyeK
-        P_inv12 = P6 @ _inv6(M6)
+        if fused:
+            A3 = so3.A_matrix(dx[3:6]).T
+            A6 = so3.A_matrix(dx[6:9]).T
+            S2b = s2m.s2_nx_yy(x.grav) @ s2m.s2_mx(x_prop.grav, dx[21:23])
+            dx_new = torch.cat([dx[0:3], A3 @ dx[3:6], A6 @ dx[6:9],
+                                dx[9:21], S2b @ dx[21:23]])
+            # C = (T P_prop T^T)[:, :K]: right-apply T's leading K rows,
+            # then left-apply its row blocks
+            C = _rows_T(torch.cat([P_prop[:, 0:3], P_prop[:, 3:6] @ A3.T],
+                                  dim=1), A3, A6, S2b)
+            P6 = C / R
+            eyeK = _eye(K, P_prop)
+            M6 = eyeK + HTH @ P6[:K]
+            # relative diagonal damping (~1e-6 of the scale): keeps the
+            # solve bounded if P drifts near-indefinite under f32
+            # accumulation
+            M6 = M6 + (1e-6 / K) * torch.sum(
+                torch.abs(torch.diagonal(M6))) * eyeK
+            P_inv12 = P6 @ _inv6(M6)
+        else:
+            if Pp_inv is None:
+                # (P_prop/R)^-1 once per scan: per pass P = T P_prop T^T
+                # with block-diagonal T, so (P/R)^-1 = R Ti^T P_prop^-1 Ti
+                P_sym = 0.5 * (P_prop + P_prop.T)
+                Pp_inv = _cho_solve(P_sym + 1e-9 * R * eyeP, eyeP)
+            T, dx_new = _dx_transport(dx, x, x_prop)
+            P = T @ P_prop @ T.T
+            P = 0.5 * (P + P.T)
+            Ti = _transport_inv(T)
+            S_inv = R * (Ti.T @ Pp_inv @ Ti)
+            S_inv = 0.5 * (S_inv + S_inv.T)
+            A = S_inv.clone()
+            A[:K, :K] += HTH
+            # (23, K) = A^-1[:, :K]; A is SPD (S_inv SPD + HTH PSD)
+            P_inv12 = _cho_solve(A, eyeP[:, :K])
         K_h = P_inv12 @ HTh
         dx_ = K_h + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
 
@@ -302,14 +384,19 @@ def update_iterated(
 
     # Joseph-form final covariance (esekfom.hpp:1841-1931 in Joseph form):
     #   P <- (I - K H) P_last (I - K H)^T + R P_inv12 HTH P_inv12^T,
-    # then the manifold transport of the final increment
-    Pl = _rows_T(P_prop, A3, A6, S2b)
-    P_last = _rows_T(Pl.T, A3, A6, S2b).T
-    P_last = 0.5 * (P_last + P_last.T)
+    # then the manifold transport of the final increment.  The Gram path
+    # rebuilds P_last = T P_prop T^T from the last pass's blocks; the row
+    # path carried it.
+    if fused:
+        Pl = _rows_T(P_prop, A3, A6, S2b)
+        P_last = _rows_T(Pl.T, A3, A6, S2b).T
+        P_last = 0.5 * (P_last + P_last.T)
+    else:
+        P_last = P
     K_x_last = P_prop.new_zeros(ERR_DIM, ERR_DIM)
     K_x_last[:, :K] = P_inv12 @ HTH
     T_fin, _ = _dx_transport(dx_, x, x_prop)
-    IKH = _eye(ERR_DIM, P_prop) - K_x_last
+    IKH = eyeP - K_x_last
     KRK = R * (P_inv12 @ HTH @ P_inv12.T)
     P_joseph = IKH @ P_last @ IKH.T + KRK
     P_post = T_fin @ P_joseph @ T_fin.T

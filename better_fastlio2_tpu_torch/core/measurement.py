@@ -1,15 +1,23 @@
 """Point-to-plane measurement model (h_share_model) — batched and masked.
 
-Port of better_fastlio2_tpu/core/measurement.py for the fused solve path:
-the scan is associated once by 5-NN over the voxel map plus a closed-form
-plane fit (common_lib.h esti_plane), packed into the (16, N) SoA buffer,
-and every ESIKF pass reduces it to the normal equations with
-ops/kernels.fused_normal_eqs.  A lazy re-association refreshes, at most
-once per scan, the rows whose voxel moved when more than 5% moved.
+Port of better_fastlio2_tpu/core/measurement.py: 5-NN association over the
+voxel map plus a closed-form plane fit (common_lib.h esti_plane), then one
+of two solve forms.
 
-The reference's lax.cond sites become host branches: each solve pass reads
-n_moved (one device->host read), and a refresh compacts its rows with
-torch.nonzero (one more).
+* The fused form (single association, extrinsic estimation off): the
+  association is packed into the (16, N) SoA buffer once per scan and
+  every ESIKF pass reduces it to the normal equations with
+  ops/kernels.fused_normal_eqs.  A lazy re-association refreshes, at most
+  once per scan, the rows whose voxel moved when more than 5% moved.
+* The row form: every pass gates the rows (robust s-gate) and reduces
+  them to HTH / HTh with ops/kernels.fused_hth, without materialising
+  them.  The association reruns on every converged pass (reference
+  semantics), or once per scan with the lazy refresh under
+  single_association.
+
+The reference's lax.cond sites become host branches: each fused solve
+pass reads n_moved (one device->host read), a lazy-refresh check reads
+the moved count, and a refresh compacts its rows with torch.nonzero.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 from torch.profiler import record_function
 
 from ..map import voxel_hash
-from ..ops.kernels import fused_normal_eqs, pack_soa
+from ..ops.kernels import fused_hth, fused_normal_eqs, pack_soa
 from ..utils import so3
 from ..utils.device import nonzero, to_host
 from .esikf import MeasurementOut
@@ -33,6 +41,7 @@ __all__ = ["plane_fit", "MeasureAux", "make_measure_fn",
 NUM_MATCH_POINTS = 5  # NN count (common_lib.h NUM_MATCH_POINTS)
 MAX_NN_DIST2 = 5.0  # 5th-NN gate (laserMapping.cpp:1909-1912)
 PLANE_INLIER_THRESH = 0.1  # esti_plane threshold (laserMapping.cpp:1922)
+ROBUST_S_GATE = 0.9  # accept if s > 0.9 (laserMapping.cpp:1930)
 
 
 def _sym3_smallest_eig(C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -151,21 +160,30 @@ def make_measure_fn(
     m: voxel_hash.VoxelHashMap,
     pts_body: torch.Tensor,
     pts_valid: torch.Tensor,
+    extrinsic_est: bool = False,
     max_probe: int = 16,
     n_neighbors: int = 27,
+    single_association: bool = False,
     max_live: int = 0,
     refresh_budget: int = 4096,
+    fused_solve: bool = False,
     early_converge: bool = False,
 ):
     """measure_fn(state, converged, aux) -> MeasurementOut closure over a
     fixed scan and map, for esikf.update_iterated, plus its initial aux.
 
-    This slice carries the fused configuration only (pipeline/lio.py
-    check_config refuses the rest): single_association (one full
-    association per scan, then the lazy budgeted refresh), fused_solve (the
-    Gram path through ops/kernels.fused_normal_eqs) and extrinsic
-    estimation off.  early_converge lets the update exit on the first
-    converged pass when under 5% of the rows changed voxel.
+    `converged` gates the re-association as dyn_share.converge does in the
+    reference (laserMapping.cpp:1906-1913): a full 5-NN association on
+    every converged pass.  single_association=True associates in full once
+    per scan and then runs the lazy refresh on converged passes: rows whose
+    voxel moved since the full pass get fresh planes (at most once per
+    scan, when more than 5% of the valid rows moved, at most
+    `refresh_budget` rows).  fused_solve=True with single_association on
+    and extrinsic_est off selects the fused form of the module docstring
+    (the one place that rule is decided); early_converge lets it exit on
+    the first converged pass when under 5% of the rows changed voxel.
+    Every other combination takes the row form: its normal equations come
+    from ops/kernels.fused_hth, K = 12 columns with extrinsic_est, else 6.
     """
 
     def search_rows(p_w, rows_valid):
@@ -177,8 +195,89 @@ def make_measure_fn(
                  & (d2[:, NUM_MATCH_POINTS - 1] <= MAX_NN_DIST2) & rows_valid)
         return plane_fit(nb, nn_ok)
 
-    return _make_fused_measure(m, pts_body, pts_valid, search_rows,
-                               refresh_budget, early_converge=early_converge)
+    # the fused solve needs one association per scan and no extrinsic
+    # columns (the reference's lio.py:309-313)
+    if fused_solve and single_association and not extrinsic_est:
+        return _make_fused_measure(m, pts_body, pts_valid, search_rows,
+                                   refresh_budget,
+                                   early_converge=early_converge)
+    return _make_row_measure(m, pts_body, pts_valid, search_rows,
+                             extrinsic_est, single_association,
+                             refresh_budget)
+
+
+def _make_row_measure(m, pts_body, pts_valid, search_rows,
+                      extrinsic_est: bool, single_association: bool,
+                      refresh_budget: int):
+    """The row-form measure closure (see make_measure_fn).
+
+    The reference's Jacobian rows (laserMapping.cpp:1966-2002) are
+    [n | p_imu x C | p_body x (R_il^T C) | C] with C = R_wi^T n.  K2 takes
+    the third block as pts x C and is fed pts = R_il p_body: since
+    p x (R^T C) = R^T ((R p) x C), its rows are the reference's times
+    D^T with D = blockdiag(I3, I3, R_il, I3), so HTH = D^T HTH' D and
+    HTh = D^T HTh' exactly.  (R_il p_body, not p_imu - t_il, which
+    cancels in f32.)  With extrinsic estimation off the trailing six
+    columns are zero and only the leading 6x6 block is kept."""
+    N = pts_body.shape[0]
+    dtype = pts_body.dtype
+    sqrt_body = torch.sqrt(torch.clamp(
+        torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
+    lazy = single_association and refresh_budget > 0
+    n_val_scan = (int(to_host(torch.sum(pts_valid.to(torch.int32))))
+                  if lazy else 0)
+
+    def measure(s: State, converged: bool, aux: MeasureAux) -> MeasurementOut:
+        p_rot = so3.quat_rotate(s.off_r, pts_body)
+        p_imu = p_rot + s.off_t
+        p_world = so3.quat_rotate(s.rot, p_imu) + s.pos
+        ijk_now = voxel_hash._voxel_of(p_world, m.voxel_size)
+
+        gate = not aux.searched if single_association else converged
+        if gate:
+            # a fresh aux: nothing of an earlier pass's association leaks
+            with record_function("lio.associate"):
+                n, d, ok = search_rows(p_world, pts_valid)
+            aux = MeasureAux(normal=n, d=d, fit_ok=ok, searched=True,
+                             assoc_ijk=ijk_now, refreshed=False)
+
+        if lazy and converged and not aux.refreshed:
+            need = (pts_valid & torch.any(ijk_now != aux.assoc_ijk, dim=-1))
+            n_need = int(to_host(torch.sum(need.to(torch.int32))))
+            if n_need * 20 > n_val_scan:  # > 5% of valid rows
+                with record_function("lio.refresh"):
+                    aux = _budgeted_refresh(aux, p_world, ijk_now, pts_valid,
+                                            search_rows, refresh_budget)
+
+        pd2 = torch.sum(aux.normal * p_world, dim=-1) + aux.d
+        srob = 1.0 - 0.9 * torch.abs(pd2) / sqrt_body
+        sel = aux.fit_ok & (srob > ROBUST_S_GATE)
+        C = so3.quat_inv_rotate(s.rot, aux.normal)
+        HTH, HTh = fused_hth(p_rot.contiguous(), p_imu.contiguous(),
+                             aux.normal.contiguous(), C.contiguous(),
+                             pd2.contiguous(), sel, extrinsic=extrinsic_est)
+        if extrinsic_est:
+            R_il = so3.quat_to_matrix(s.off_r).to(HTH.dtype)
+            HTH = HTH.clone()
+            HTH[6:9] = R_il.T @ HTH[6:9]
+            HTH[:, 6:9] = HTH[:, 6:9] @ R_il
+            HTh = HTh.clone()
+            HTh[6:9] = R_il.T @ HTh[6:9]
+        else:
+            HTH, HTh = HTH[:6, :6], HTh[:6]
+        n_valid = torch.sum(sel.to(dtype))
+        return MeasurementOut(aux=aux, neq=(HTH, HTh, n_valid))
+
+    aux0 = MeasureAux(
+        normal=pts_body.new_zeros(N, 3),
+        d=pts_body.new_zeros(N),
+        fit_ok=torch.zeros(N, dtype=torch.bool, device=pts_body.device),
+        searched=False,
+        assoc_ijk=torch.zeros(N, 3, dtype=torch.int32,
+                              device=pts_body.device),
+        refreshed=False,
+    )
+    return measure, aux0
 
 
 def _make_fused_measure(m, pts_body, pts_valid, search_rows,

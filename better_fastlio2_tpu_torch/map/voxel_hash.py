@@ -24,12 +24,15 @@ Translation notes:
   body->world transform), XLA applies the updates in order, so the last
   one wins.  CUDA's index_put_ picks an undefined winner, so these sets
   resolve the last writer explicitly (`_set_rows_last`).
+* The grouped insert's `lexsort` becomes stable sorts from the least
+  significant key up, and its `associative_scan(maximum)` group head a
+  `torch.cummax`.
 * The claim loop and the probe loop are host loops: one device->host read
   per round (utils.device.to_host counts them).
 
-Only what the per-scan front end runs is here: the pre-grouped insert
-(one row per voxel — the downsample leaf equals the map voxel), with or
-without the dense index, without budgets or moments.
+Only what the per-scan front end runs is here: the insert, grouped or
+pre-grouped (one row per voxel — the downsample leaf equals the map
+voxel), with or without the dense index, without budgets or moments.
 """
 
 from __future__ import annotations
@@ -190,6 +193,16 @@ def _set_rows_last(target: torch.Tensor, idx: torch.Tensor,
     target.index_put_((tgt,), val)
 
 
+def _lexsort(keys) -> torch.Tensor:
+    """The permutation jnp.lexsort(keys) gives: the last key is primary,
+    ties keep the input order (stable sorts, least significant key
+    first)."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
 def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
            max_probe: int = 16, pre_grouped: bool = False) -> VoxelHashMap:
     """Insert a batch of world-frame points (`valid` masks rows); updates
@@ -197,17 +210,16 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
     same way) and returns the map.
 
     Semantics of ikd-Tree Add_Points with downsample-on-insert: each
-    bucket holds at most B points, excess points are dropped.  New voxels
-    claim empty slots by scatter-min on the row index, deterministic.
-    pre_grouped=True (required here) asserts every valid row is its own
-    voxel's group head, as the downsample output at the map's leaf size
-    is; with a dense index, voxels whose row is current resolve through
-    one gather and only the misses probe.
+    bucket holds at most B points, excess points are dropped.  The rows
+    are grouped by voxel (sorted by hash, then coords; invalid rows last),
+    each group's head resolves or claims the voxel's slot, and every row
+    appends at base + its rank in the group.  New voxels claim empty slots
+    by scatter-min on the sorted row index, deterministic.
+    pre_grouped=True asserts every valid row is its own voxel's group
+    head, as the downsample output at the map's leaf size is, and skips
+    the sort.  With a dense index, voxels whose row is current resolve
+    through one gather and only the misses probe.
     """
-    if not pre_grouped:
-        raise NotImplementedError(
-            "the grouped (sorting) insert comes with a later slice of the "
-            "port; this slice inserts downsampled scans (pre_grouped=True)")
     C, B = m.capacity, m.bucket
     hmask = C - 1
     dev = pts_world.device
@@ -216,23 +228,38 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
                       _INT_MAX)
     idx = torch.arange(n, dtype=torch.int64, device=dev)
 
-    h_s = _hash(ijk, hmask)
-    key_target = _pack(ijk)
+    if pre_grouped:
+        ijk_s, pts_s, valid_s = ijk, pts_world, valid
+        is_head = valid
+        group_head, rank = None, 0
+    else:
+        h0 = torch.where(valid, _hash(ijk, hmask), _INT_MAX)
+        order = _lexsort((ijk[:, 2], ijk[:, 1], ijk[:, 0], h0))
+        ijk_s, pts_s, valid_s = ijk[order], pts_world[order], valid[order]
+        first = torch.ones(n, dtype=torch.bool, device=dev)
+        first[1:] = torch.any(ijk_s[1:] != ijk_s[:-1], dim=-1)
+        is_head = first & valid_s
+        group_head = torch.cummax(torch.where(first, idx, 0), dim=0).values
+        rank = idx - group_head
+
+    h_s = _hash(ijk_s, hmask)
+    key_target = _pack(ijk_s)
     key_arr = m.key
 
     # fast find through the dense index; the slot's LIVE key is
     # re-verified (a row may point at a slot the crop has tombstoned)
     if m.dense is not None:
-        dslot = _dense_lookup(m.dense, ijk).to(torch.int64)
+        dslot = _dense_lookup(m.dense, ijk_s).to(torch.int64)
         live_ok = key_arr[torch.clamp(dslot, min=0)] == key_target
         dslot = torch.where(live_ok, dslot, -1)
-        slot = torch.where(valid, dslot, -1)
-        unresolved = valid & (dslot < 0)
+        slot = torch.where(is_head, dslot, -1)
+        unresolved = is_head & (dslot < 0)
     else:
         slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        unresolved = valid.clone()
+        unresolved = is_head.clone()
 
-    # claim loop: one probe round per pass, one host read per round
+    # claim loop over the group heads: one probe round per pass, one host
+    # read per round
     probe = torch.zeros(n, dtype=torch.int64, device=dev)
     active = to_host(torch.any(unresolved))
     while active:
@@ -259,14 +286,17 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
         probe = torch.where(unresolved, probe + 1, probe)
         unresolved = unresolved & (probe < max_probe)
         active = to_host(torch.any(unresolved))
-    slot = torch.where(valid, slot, -1)
+    head_slot = slot
+    # every row inherits its group head's slot (-1 if the head failed)
+    slot_all = head_slot if group_head is None else head_slot[group_head]
+    slot_all = torch.where(valid_s, slot_all, -1)
 
-    # append into the buckets (rank 0 for pre-grouped rows)
-    base = m.count[torch.clamp(slot, min=0)].to(torch.int64)
-    ok = (slot >= 0) & (base < B) & valid
+    # append into the buckets at base + rank
+    dest = m.count[torch.clamp(slot_all, min=0)].to(torch.int64) + rank
+    ok = (slot_all >= 0) & (dest < B) & valid_s
     flat_pts = m.points.view(C * B, 3)
-    _set_rows_last(flat_pts, slot * B + base, pts_world, ok)
-    m.count.index_add_(0, torch.where(ok, slot, 0), ok.to(torch.int32))
+    _set_rows_last(flat_pts, slot_all * B + dest, pts_s, ok)
+    m.count.index_add_(0, torch.where(ok, slot_all, 0), ok.to(torch.int32))
     torch.clamp(m.count, max=B, out=m.count)
 
     # refresh the dense row of every head that resolved a slot.  Distinct
@@ -277,9 +307,9 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
     if m.dense is not None:
         Gx, Gy, Gz, _ = m.dense.shape
         flat = m.dense.view(Gx * Gy * Gz, 2)
-        row = torch.stack([key_target, slot.to(torch.int32)], dim=-1)
-        _set_rows_last(flat, _dense_linear(m.dense.shape, ijk), row,
-                       valid & (slot >= 0))
+        row = torch.stack([key_target, head_slot.to(torch.int32)], dim=-1)
+        _set_rows_last(flat, _dense_linear(m.dense.shape, ijk_s), row,
+                       is_head & (head_slot >= 0))
     return m
 
 

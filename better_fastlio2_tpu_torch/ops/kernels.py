@@ -1,7 +1,10 @@
-"""The ESIKF measurement kernel: fused normal equations of one solve pass.
+"""The ESIKF measurement kernels: normal equations of one solve pass.
 
-Port of better_fastlio2_tpu/ops/pallas_kernels.py (pack_soa and
-fused_normal_eqs).  The per-scan association results are packed once into a
+Port of better_fastlio2_tpu/ops/pallas_kernels.py: K1 (pack_soa and
+fused_normal_eqs) for the fused single-association solve, and K2
+(fused_hth) for the row path.
+
+K1.  The per-scan association results are packed once into a
 (SOA_CH, N) buffer; every solve pass then reduces it, under the current
 pose, to the (8, 8) Gram matrix of the point-to-plane rows and the count of
 lanes whose voxel moved:
@@ -13,9 +16,18 @@ lanes whose voxel moved:
                                 G[7,7] = n_valid
     n_moved = sum valid * [ floor(p_w / vs) != assoc_ijk ]
 
-On a CUDA tensor `fused_normal_eqs` launches the hand-written kernel
-csrc/fused_normal_eqs.cu; on a CPU tensor it runs the plain version
-`fused_normal_eqs_reference`.  Nothing else falls back.
+K2.  The masked point-to-plane rows of the row path, reduced to their
+normal equations without materialising them:
+
+    rows = [n | p_imu x C | pts x C | C] * w     (w = sel; the last six
+                                                  columns zero unless
+                                                  `extrinsic`)
+    HTH  = sum rows^T rows  (12, 12),   HTh = sum rows * (-pd2 * w)  (12,)
+
+On a CUDA tensor `fused_normal_eqs` and `fused_hth` launch the
+hand-written kernels csrc/fused_normal_eqs.cu and csrc/fused_hth.cu; on a
+CPU tensor they run the plain versions `fused_normal_eqs_reference` and
+`fused_hth_reference`.  Nothing else falls back.
 """
 
 from __future__ import annotations
@@ -25,7 +37,8 @@ import ctypes
 import torch
 
 __all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs",
-           "fused_normal_eqs_reference", "fused_normal_eqs_tolerance"]
+           "fused_normal_eqs_reference", "fused_normal_eqs_tolerance",
+           "fused_hth", "fused_hth_reference", "fused_hth_tolerance"]
 
 SOA_CH = 16
 # channel indices
@@ -176,3 +189,118 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
 
 
 fused_normal_eqs.launches = 0
+
+
+def _hth_rows(pts_body, p_imu, normals, C, w, extrinsic: bool):
+    """[n | p_imu x C | pts x C | C] * w (pallas_kernels._rows); the last
+    six columns are zero unless `extrinsic`."""
+    A = torch.linalg.cross(p_imu, C, dim=-1)
+    if extrinsic:
+        B, Ccol = torch.linalg.cross(pts_body, C, dim=-1), C
+    else:
+        B = Ccol = torch.zeros_like(normals)
+    return torch.cat([normals, A, B, Ccol], dim=-1) * w[:, None]
+
+
+def fused_hth_reference(pts_body, p_imu, normals, C, pd2, sel,
+                        extrinsic: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version (pallas_kernels.fused_hth_reference), in the
+    input dtype: (HTH (12, 12), HTh (12,))."""
+    w = sel.to(pts_body.dtype)
+    hx = _hth_rows(pts_body, p_imu, normals, C, w, extrinsic)
+    return hx.T @ hx, hx.T @ (-pd2 * w)
+
+
+def fused_hth_tolerance(pts_body, p_imu, normals, C, pd2, sel,
+                        extrinsic: bool = False, rtol: float = 1e-5
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """How far a correct f32 kernel may lie from the plain version on these
+    inputs: (HTH_tol (12, 12) f64, HTh_tol (12,) f64), computed in f64.
+
+    HTH_tol[i, j] = rtol * sqrt(HTH_ii HTH_jj) and HTh_tol[i] = rtol *
+    sqrt(HTH_ii * sum w pd2^2): by Cauchy-Schwarz these bound the sums of
+    |r_i r_j| and |r_i pd2| the entries come from, the scale of a
+    summation-order error, so each entry is held to its own size.  K2 has
+    no gate, so there are no edge lanes; an entry whose column is dead (or
+    an all-false mask) is held to exactly 0."""
+    d = [t.double() for t in (pts_body, p_imu, normals, C, pd2)]
+    w = sel.double()
+    rows = _hth_rows(*d[:4], w, extrinsic)
+    diag = torch.sum(rows * rows, dim=0)
+    s = torch.sum(w * d[4] * d[4])
+    return (rtol * torch.sqrt(diag[:, None] * diag[None, :]),
+            rtol * torch.sqrt(diag * s))
+
+
+def _hth_lib():
+    from . import _build
+
+    lib = _build.load("fused_hth")
+    fn = lib.fused_hth_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp]
+        fn.restype = ci
+        lib.fused_hth_blocks.argtypes = [ci]
+        lib.fused_hth_blocks.restype = ci
+        lib.fused_hth_partial_width.argtypes = []
+        lib.fused_hth_partial_width.restype = ci
+    return lib
+
+
+def fused_hth(pts_body, p_imu, normals, C, pd2, sel, extrinsic: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(HTH (12, 12), HTh (12,)) of the masked point-to-plane rows
+    (pallas_kernels.fused_hth).  `sel` must be a bool mask: the kernel
+    applies w twice (rows * w against -pd2 * w), exact only for 0/1.
+
+    CUDA tensors: one launch of the CUDA kernel on the current stream
+    (counted in `fused_hth.launches`), f32 outputs; pts_body, p_imu,
+    normals and C contiguous (N, 3) f32, pd2 contiguous (N,) f32, sel
+    contiguous (N,) bool, all on one device.  CPU tensors: the plain
+    version in the input dtype.  Anything else raises."""
+    ins = (pts_body, p_imu, normals, C, pd2, sel)
+    if sel.dtype != torch.bool:
+        raise TypeError(f"fused_hth: sel must be a bool mask, got "
+                        f"{sel.dtype}")
+    if all(t.device.type == "cpu" for t in ins):
+        return fused_hth_reference(*ins, extrinsic=extrinsic)
+    dev = p_imu.device
+    if dev.type != "cuda" or any(t.device != dev for t in ins):
+        raise ValueError(
+            "fused_hth: inputs on " + ", ".join(str(t.device) for t in ins)
+            + "; all must be on one CUDA device (or the CPU)")
+    if any(t.dtype != torch.float32 for t in ins[:5]):
+        raise TypeError("fused_hth: the CUDA kernel takes float32 points, "
+                        "normals and residuals, got "
+                        + ", ".join(str(t.dtype) for t in ins[:5]))
+    n = p_imu.shape[0] if p_imu.dim() == 2 else -1
+    if (n < 1 or any(tuple(t.shape) != (n, 3) for t in ins[:4])
+            or any(tuple(t.shape) != (n,) for t in ins[4:])):
+        raise ValueError("fused_hth: expected four (N, 3) and two (N,) "
+                         "tensors with N >= 1, got "
+                         + ", ".join(str(tuple(t.shape)) for t in ins))
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("fused_hth: inputs must be contiguous")
+    if n >= 2 ** 31 // 3:
+        raise ValueError(f"fused_hth: N={n} too large")
+    lib = _hth_lib()
+    nblocks = lib.fused_hth_blocks(n)
+    part = torch.empty((nblocks, lib.fused_hth_partial_width()),
+                       dtype=torch.float32, device=dev)
+    HTH = torch.empty((12, 12), dtype=torch.float32, device=dev)
+    HTh = torch.empty(12, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_hth_launch(
+            pts_body.data_ptr(), p_imu.data_ptr(), normals.data_ptr(),
+            C.data_ptr(), pd2.data_ptr(), sel.data_ptr(), n, int(extrinsic),
+            part.data_ptr(), nblocks, HTH.data_ptr(), HTh.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_hth: CUDA launch failed (error {err})")
+    fused_hth.launches += 1
+    return HTH, HTh
+
+
+fused_hth.launches = 0

@@ -15,10 +15,12 @@ branched on the device (counted by utils.device.host_syncs): the update
 gate, one or two per ESIKF pass, one per insert claim round, and the one
 flat 32-float info readback per scan.
 
-This slice supports one configuration family: single_association,
-fused_solve, extrinsic estimation off, no plane cache, scan leaf equal to
-the map voxel.  Everything else raises NotImplementedError naming the
-slice that brings it.
+Ported: the fused single-association solve (slice 1) and the ESIKF row
+path (slice 2: reference re-association or single association, with or
+without extrinsic estimation), over the 5-NN association and the voxel-hash
+insert, grouped or pre-grouped.  Everything else (the plane cache and the
+rest of the bench configuration, the map rebuild, feature extraction)
+raises NotImplementedError naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -60,23 +62,16 @@ class LIOState(NamedTuple):
 
 
 def check_config(cfg: LIOConfig) -> None:
-    """Raise NotImplementedError for every option this slice does not
-    carry, naming the later slice that brings it."""
-    kd, mp, sh = cfg.ikdtree, cfg.mapping, cfg.shapes
+    """Raise NotImplementedError for every option the port does not carry
+    yet, naming the later slice that brings it."""
+    kd, sh = cfg.ikdtree, cfg.shapes
     bench = "the bench-configuration slice (plane cache, mom_dense)"
-    rows = "the slice that ports fused_hth (the ESIKF row path)"
     checks = [
         (kd.plane_cache, "plane_cache", bench),
         (kd.mom_dense, "mom_dense", bench),
         (sh.solve_compact > 0, "shapes.solve_compact", bench),
         (sh.insert_claim_budget > 0 or sh.insert_dense_budget > 0
          or sh.insert_mom_budget > 0, "the insert budgets", bench),
-        (mp.extrinsic_est_en, "mapping.extrinsic_est_en=True", rows),
-        (not (kd.single_association and kd.fused_solve),
-         "single_association/fused_solve off", rows),
-        (mp.surf_leaf_size != kd.filter_size_map_min,
-         "a scan leaf unequal to the map voxel (the grouped insert)",
-         "a later slice"),
         (kd.recontruct_kdtree, "ikdtree.recontruct_kdtree",
          "a later slice (map rebuild)"),
         (cfg.preprocess.feature_extract_enable,
@@ -131,6 +126,9 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
     sh, mp, kd = cfg.shapes, cfg.mapping, cfg.ikdtree
     dtype = _DTYPES[cfg.dtype]
     packed_key = (2.2 * mp.det_range / mp.surf_leaf_size) < 1000.0
+    n_cols = 12 if mp.extrinsic_est_en else 6
+    # downsample centroids at the map's own leaf are one row per map voxel
+    pre_grouped = mp.surf_leaf_size == kd.filter_size_map_min
     Q = imu.build_Q(mp.gyr_cov, mp.acc_cov, mp.b_gyr_cov, mp.b_acc_cov, dtype,
                     device)
 
@@ -161,26 +159,29 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
         if inited and n_valid_h >= 5:  # laserMapping.cpp:2347
             measure, aux0 = measurement.make_measure_fn(
                 ls.map, pts_ds, ds_valid,
+                extrinsic_est=mp.extrinsic_est_en,
                 max_probe=sh.map_max_probe,
                 n_neighbors=sh.knn_neighbors,
+                single_association=kd.single_association,
                 max_live=sh.knn_max_live,
+                fused_solve=kd.fused_solve,
                 early_converge=kd.early_converge,
             )
             with record_function("lio.update"):
                 x_post, P_post, _, info_u = esikf.update_iterated(
                     x_prop, P_prop, measure, aux0,
-                    max_iter=kd.max_iteration, n_cols=6)
+                    max_iter=kd.max_iteration, n_cols=n_cols)
             n_eff = info_u["n_eff"].to(dtype)
         else:
             x_post, P_post = x_prop, P_prop
             n_eff = torch.zeros((), dtype=dtype, device=device)
 
-        # ---- map incremental insert (pre-grouped: leaf == map voxel) -----
+        # ---- map incremental insert --------------------------------------
         with record_function("lio.insert"):
             pts_world = measurement.transform_to_world(x_post, pts_ds)
             m = voxel_hash.insert(ls.map, pts_world, ds_valid,
                                   max_probe=sh.map_max_probe,
-                                  pre_grouped=True)
+                                  pre_grouped=pre_grouped)
 
         ls = LIOState(
             x=x_post, P=P_post, map=m, cube_lo=ls.cube_lo,
@@ -229,7 +230,7 @@ class LIOPipeline:
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(
                 "on CUDA the port runs in float32 (the fused_normal_eqs "
-                "kernel takes f32); float64 runs on the CPU")
+                "and fused_hth kernels take f32); float64 runs on the CPU")
         self._init_acc: list[np.ndarray] = []
         self._init_gyr: list[np.ndarray] = []
         self.inited = False

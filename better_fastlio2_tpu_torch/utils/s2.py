@@ -38,9 +38,11 @@ def s2_bx(vec: torch.Tensor, length: float = GRAVITY) -> torch.Tensor:
     r1 = torch.stack([length - y * y / denom, -z * y / denom], dim=-1)
     r2 = torch.stack([-z * y / denom, length - z * z / denom], dim=-1)
     regular = torch.stack([r0, r1, r2], dim=-2) / length
+    # fill_ on views: assigning a Python number through an index copies a
+    # host scalar to the device, a synchronising copy on CUDA
     degen = torch.zeros_like(regular)
-    degen[..., 1, 1] = -1.0
-    degen[..., 2, 0] = 1.0
+    degen[..., 1, 1].fill_(-1.0)
+    degen[..., 2, 0].fill_(1.0)
     use_degen = (x + length <= _TOL)[..., None, None]
     return torch.where(use_degen, degen, regular)
 
@@ -69,7 +71,7 @@ def s2_boxminus(vec: torch.Tensor, other: torch.Tensor,
     # antipodal fallback: (pi, 0) when v_sin ~ 0 but theta is large
     anti = (v_sin < _TOL) & (torch.abs(theta) > _TOL)
     pi_vec = torch.zeros_like(res)
-    pi_vec[..., 0] = math.pi
+    pi_vec[..., 0].fill_(math.pi)
     return torch.where(anti[..., None], pi_vec, res)
 
 

@@ -6,17 +6,31 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build   — compile every kernel of the port from its sources (nvcc,
                sm_90a), one compiler per source, all started together;
-  2. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes (and ragged ones), and time
-               both with CUDA events (median of >= 50 runs after warmup);
-  3. main    — run LIOPipeline, the port's entry point, over 240 scans of
-               the room benchmark sequence at the full bench shapes, count
-               the kernel launches and host syncs of that run, re-check the
-               kernel on three of its scans, and gate the trajectory on the
-               room accuracy gate of bench.py (end error <= 0.030 m,
-               ATE <= 0.15 m).
+  2. kernels — hold K1 (fused_normal_eqs) against its plain PyTorch
+               version on the card at the main path's shapes (and ragged
+               ones), and time both with CUDA events (median of >= 50 runs
+               after warmup);
+  3. k2      — the same for K2 (fused_hth) in both modes, plus an all-false
+               mask (exactly 0), and the library call hx^T hx + hx^T h on
+               prebuilt (N, 12) rows;
+  4. main    — run LIOPipeline, the port's entry point, over 240 scans of
+               the room benchmark sequence at the full bench shapes on the
+               fused single-association path (slice 1), count the kernel
+               launches of that run and its host syncs (the port's own
+               reads through utils.device.to_host, and every synchronising
+               call torch reports under set_sync_debug_mode("warn")),
+               re-check K1 on three of
+               its scans, and gate the trajectory on the room accuracy gate
+               of bench.py (end error <= 0.030 m, ATE <= 0.15 m);
+  5. row     — the same sequence and shapes on the ESIKF row path (the
+               reference re-association on every converged pass, 6 gain
+               columns), K2 launched on every updated scan and re-checked
+               on three, K1 never; the room gate;
+  6. row_ext — the row path with extrinsic estimation (12 gain columns);
+               end error and ATE <= 0.15 m, looser than the room gate
+               because the JAX package itself reads 0.08 m there.
 
-Output: the card's name and power limit, one line per phase, one
+Output: one line per phase, the card's name and power limit, one
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Needs a
 CUDA device; imports nothing of JAX.
 """
@@ -28,6 +42,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -38,6 +53,13 @@ TIMING_RUNS = 100
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 K1_FLOPS_PER_LANE = 140  # transform, residual, gate, rows, 36 FMAs, voxel test
+# K2 per lane: two (one) cross products, the w products, 78 + 12 (21 + 6)
+# FMAs; bytes: four (three) (N, 3) f32 inputs, pd2 f32, sel u8
+K2_FLOPS_PER_LANE = {True: 220, False: 80}
+K2_BYTES_PER_LANE = {True: 4 * 12 + 4 + 1, False: 3 * 12 + 4 + 1}
+# the JAX package in f32 on the CPU over the same 240 room scans (ATE, end
+# error in m): the reference level each row phase is printed beside
+JAX_ROOM_REF = {"row": (0.0178, 0.0040), "row_ext": (0.0842, 0.0816)}
 
 
 def fail(msg: str) -> None:
@@ -59,6 +81,14 @@ def card_line() -> str:
     if r.returncode != 0 or not r.stdout.strip():
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take (ms), and what bounds it: the
+    bytes over the memory rate or the operations over the f32 rate."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def time_ms(fn, runs: int = TIMING_RUNS, warmup: int = 10) -> float:
@@ -151,6 +181,56 @@ def compare_k1(soa, params, G_k, mv_k) -> dict:
             "boundary_lanes": slack}
 
 
+def random_hth(n: int, seed: int, sel: str = "random"):
+    """Seeded K2 inputs like the row path's: points within ~25 m, their
+    imu-frame copies, unit normals and C, small residuals, and a bool
+    mask: `sel` "random" (80 % true), "all" or "none".  CPU tensors, f32;
+    the tests take the same inputs."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 10.0
+    pimu = pts + rng.normal(size=(n, 3)).astype(np.float32) * 0.1
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    C = rng.normal(size=(n, 3)).astype(np.float32)
+    C /= np.linalg.norm(C, axis=-1, keepdims=True)
+    pd2 = rng.normal(size=n).astype(np.float32) * 0.05
+    mask = {"random": rng.uniform(size=n) > 0.2, "all": np.ones(n, bool),
+            "none": np.zeros(n, bool)}
+    return [torch.as_tensor(a) for a in (pts, pimu, nrm, C, pd2, mask[sel])]
+
+
+def compare_k2(ins, extrinsic: bool, HTH_k, HTh_k) -> dict:
+    """Hold one K2 result against the plain version on the same inputs:
+    every entry within kernels.fused_hth_tolerance (1e-5 sqrt(HTH_ii
+    HTH_jj), and 1e-5 sqrt(HTH_ii sum w pd2^2) for HTh), HTH exactly
+    symmetric."""
+    import torch
+
+    from better_fastlio2_tpu_torch.ops import kernels
+
+    HTH_r, HTh_r = kernels.fused_hth_reference(*ins, extrinsic=extrinsic)
+    tol_H, tol_h = kernels.fused_hth_tolerance(*ins, extrinsic=extrinsic)
+    dH = (HTH_k.double() - HTH_r.double()).abs()
+    dh = (HTh_k.double() - HTh_r.double()).abs()
+    ratio = torch.cat([(dH / tol_H.clamp(min=1e-300)).flatten(),
+                       dh / tol_h.clamp(min=1e-300)])
+    if not (bool((dH <= tol_H).all()) and bool((dh <= tol_h).all())):
+        k = int(torch.argmax(ratio))
+        fail(f"K2 (extrinsic={extrinsic}) disagrees with the plain version "
+             f"at {'HTH' if k < 144 else 'HTh'}[{k % 144}]: max err "
+             f"{float(max(dH.max(), dh.max())):.3e}, {float(ratio.max()):.3g}"
+             f" of its tolerance (N={ins[0].shape[0]})")
+    if not torch.equal(HTH_k, HTH_k.T):
+        fail("K2's HTH is not exactly symmetric")
+    return {"n": ins[0].shape[0], "extrinsic": extrinsic,
+            "max_abs_err": float(max(dH.max(), dh.max())),
+            "max_abs_HTH": float(HTH_r.abs().max()),
+            "max_err_over_tol": float(ratio.max()),
+            "n_valid": int(ins[5].sum())}
+
+
 def phase_build() -> None:
     from better_fastlio2_tpu_torch.ops import _build
 
@@ -189,11 +269,58 @@ def phase_kernels() -> dict:
     # the 13 live channels of the buffer (13-15 are padding the kernel
     # never reads), the pose, and G plus n_moved written
     bytes_moved = 13 * n * 4 + params.numel() * 4 + (64 + 1) * 4
-    bound_ms = 1e3 * max(bytes_moved / PEAK_BYTES_PER_S,
-                         K1_FLOPS_PER_LANE * n / PEAK_F32_PER_S)
+    bound_ms, bound_by = bound(bytes_moved, K1_FLOPS_PER_LANE * n)
     out = {"phase": "kernels", "checks": checks, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "timed_n": n,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "timed_n": n,
            "timing_runs": TIMING_RUNS}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_k2() -> dict:
+    import torch
+
+    from better_fastlio2_tpu_torch.ops import kernels
+
+    checks = []
+    for extrinsic in (False, True):
+        for n, seed in ((16384, 11), (10240 + 37, 12), (1, 13)):
+            ins = [t.cuda() for t in random_hth(n, seed)]
+            HTH, HTh = kernels.fused_hth(*ins, extrinsic=extrinsic)
+            torch.cuda.synchronize()
+            checks.append(compare_k2(ins, extrinsic, HTH, HTh))
+        ins = [t.cuda() for t in random_hth(4096, 14, sel="none")]
+        H0, h0 = kernels.fused_hth(*ins, extrinsic=extrinsic)
+        torch.cuda.synchronize()
+        if int(torch.count_nonzero(H0)) or int(torch.count_nonzero(h0)):
+            fail(f"K2 (extrinsic={extrinsic}) on an all-false mask is not "
+                 "exactly zero")
+
+    n = 16384  # n_ds at the room bench shapes
+    ins = [t.cuda() for t in random_hth(n, 11)]
+    timing = {}
+    for extrinsic in (False, True):
+        w = ins[5].float()
+        hx = kernels._hth_rows(*ins[:4], w, extrinsic).contiguous()
+        h = (-ins[4] * w).contiguous()
+        ms = time_ms(lambda: kernels.fused_hth(*ins, extrinsic=extrinsic))
+        plain_ms = time_ms(lambda: kernels.fused_hth_reference(
+            *ins, extrinsic=extrinsic))
+        library_ms = time_ms(lambda: (hx.T @ hx, hx.T @ h))
+        bytes_moved = K2_BYTES_PER_LANE[extrinsic] * n + (144 + 12) * 4
+        bound_ms, bound_by = bound(bytes_moved,
+                                   K2_FLOPS_PER_LANE[extrinsic] * n)
+        timing["ext" if extrinsic else "noext"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved}
+    out = {"phase": "k2", "checks": checks, "timing": timing, "timed_n": n,
+           "timing_runs": TIMING_RUNS,
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    if out["tf32"]:
+        fail("TF32 is on for float32 matmuls: the library yardstick would "
+             "not be float32")
     print(json.dumps(out), flush=True)
     return out
 
@@ -215,11 +342,29 @@ def room_config():
     return cfg
 
 
-def run_main_path(cfg, groups, device=None, check_scans=CHECK_SCANS) -> dict:
-    """Drive LIOPipeline over `groups`; return the per-scan record, the
-    kernel's launch count over the run (counts set to 0 just before) and
-    its re-checks on `check_scans` (inputs captured as the path made them,
-    compared after the run)."""
+def row_config(extrinsic: bool):
+    """room_config() on the ESIKF row path: the reference re-association
+    on every converged pass (single_association off, so the fused solve
+    does not apply), early_converge off, extrinsic estimation as given
+    (the config.py default is on)."""
+    cfg = room_config()
+    cfg.ikdtree.single_association = False
+    cfg.ikdtree.early_converge = False
+    cfg.mapping.extrinsic_est_en = extrinsic
+    return cfg
+
+
+KERNELS = {"fused_normal_eqs": compare_k1, "fused_hth": compare_k2}
+
+
+def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
+                  device=None, check_scans=CHECK_SCANS) -> dict:
+    """Drive LIOPipeline over `groups`; return the per-scan record, each
+    kernel's launch count over the run (counts set to 0 just before), the
+    host syncs per scan (the port's to_host reads, and on CUDA every
+    synchronising call torch reports), and the re-checks of `kernel` on
+    `check_scans` (inputs captured as the path made them, compared after
+    the run)."""
     import torch
 
     from better_fastlio2_tpu_torch.core import measurement
@@ -227,48 +372,72 @@ def run_main_path(cfg, groups, device=None, check_scans=CHECK_SCANS) -> dict:
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
     from better_fastlio2_tpu_torch.utils.device import host_syncs
 
-    k1 = kernels.fused_normal_eqs
+    fns = {name: getattr(kernels, name) for name in KERNELS}
+    real = fns[kernel]
     captured = []
 
-    def spy(soa, params):  # records the path's own K1 inputs and outputs
-        G, mv = k1(soa, params)
-        captured.append((soa.clone(), params.clone(), G.clone(), mv.clone()))
-        return G, mv
+    def spy(*args, **kw):  # records the path's own inputs and outputs
+        out = real(*args, **kw)
+        if kernel == "fused_hth":
+            captured.append(([a.clone() for a in args], kw["extrinsic"],
+                             *(o.clone() for o in out)))
+        else:
+            captured.append((*(a.clone() for a in args),
+                             *(o.clone() for o in out)))
+        return out
 
     pipe = LIOPipeline(cfg, device=device)
     cuda = pipe.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    gt, scan_ms, launches, syncs, outs = [], [], [], [], []
-    k1.launches = 0
+    gt, scan_ms, syncs, torch_syncs, outs = [], [], [], [], []
+    launches = {name: [] for name in fns}
+    for f in fns.values():
+        f.launches = 0
     host_syncs.reset()
-    for i, g in enumerate(groups):
-        if pipe.inited:
-            gt.append(g["gt_pos"])
-        l0, s0 = k1.launches, host_syncs.count
-        measurement.fused_normal_eqs = spy if i in check_scans else k1
-        t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
-                                    g["imu_gyr"], g["imu_t"],
-                                    g["scan_beg_abs"], g["scan_end_t"])
-            if cuda:
-                torch.cuda.synchronize()
+            for i, g in enumerate(groups):
+                if pipe.inited:
+                    gt.append(g["gt_pos"])
+                l0 = {name: f.launches for name, f in fns.items()}
+                s0, w0 = host_syncs.count, len(caught)
+                setattr(measurement, kernel,
+                        spy if i in check_scans else real)
+                t0 = time.perf_counter()
+                try:
+                    out = pipe.process_scan(
+                        g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
+                        g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
+                    n_torch = sum("synchroniz" in str(w.message)
+                                  for w in caught[w0:])
+                    if cuda:
+                        torch.cuda.synchronize()
+                finally:
+                    setattr(measurement, kernel, real)
+                dt = time.perf_counter() - t0
+                if out is not None:
+                    scan_ms.append(1e3 * dt)
+                    for name, f in fns.items():
+                        launches[name].append(f.launches - l0[name])
+                    syncs.append(host_syncs.count - s0)
+                    torch_syncs.append(n_torch)
+                    outs.append(out)
         finally:
-            measurement.fused_normal_eqs = k1
-        dt = time.perf_counter() - t0
-        if out is not None:
-            scan_ms.append(1e3 * dt)
-            launches.append(k1.launches - l0)
-            syncs.append(host_syncs.count - s0)
-            outs.append(out)
-    total_launches = k1.launches
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    totals = {name: f.launches for name, f in fns.items()}
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    checks = [compare_k1(*c) for c in captured]
+    compare = KERNELS[kernel]
+    checks = [compare(*c) for c in captured]
     return {"traj": np.array(pipe.trajectory), "gt": np.array(gt),
             "scan_ms": scan_ms, "launches": launches, "syncs": syncs,
-            "outs": outs, "total_launches": total_launches,
-            "checks": checks, "peak_bytes": peak}
+            "torch_syncs": torch_syncs,
+            "outs": outs, "totals": totals, "checks": checks,
+            "peak_bytes": peak}
 
 
 def accuracy(traj: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
@@ -281,44 +450,51 @@ def accuracy(traj: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
     return float(np.sqrt(np.mean(err ** 2))), float(err[-1])
 
 
-def phase_main() -> dict:
-    from better_fastlio2_tpu_torch.io.synthetic import make_bench_sequence
-
-    t0 = time.perf_counter()
-    groups = make_bench_sequence("room", N_SCANS)
-    gen_s = time.perf_counter() - t0
-    res = run_main_path(room_config(), groups)
+def summarize(name: str, res: dict, kernel: str, gate_end: float,
+              gate_ate: float) -> dict:
+    """Check one main-path run (every scan tracked and finite; `kernel`
+    launched on every updated scan, the other kernel never; the inputs of
+    every check scan captured; the accuracy gate) and print its line."""
     traj = res["traj"]
     if len(traj) != N_SCANS - 1 or not np.all(np.isfinite(traj)):
-        fail(f"trajectory has {len(traj)} rows or non-finite values")
+        fail(f"{name}: trajectory has {len(traj)} rows or non-finite values")
     # every scan but the first (which only builds the map) runs the update
-    starved = [i for i, n in enumerate(res["launches"][1:], 1) if n < 1]
-    if starved or res["total_launches"] < 1:
-        fail(f"K1 launched {res['total_launches']} times; scans without a "
-             f"launch: {starved[:10]}")
+    per_scan = res["launches"][kernel]
+    starved = [i for i, n in enumerate(per_scan[1:], 1) if n < 1]
+    if starved or res["totals"][kernel] < 1:
+        fail(f"{name}: {kernel} launched {res['totals'][kernel]} times; "
+             f"scans without a launch: {starved[:10]}")
+    others = {k: v for k, v in res["totals"].items() if k != kernel}
+    if any(others.values()):
+        fail(f"{name}: the path launched kernels it does not run: {others}")
     if len(res["checks"]) < len(CHECK_SCANS):
-        fail("the path's K1 inputs were not captured on every check scan")
+        fail(f"{name}: the path's {kernel} inputs were not captured on "
+             "every check scan")
     ate, end = accuracy(traj, res["gt"])
-    if end > 0.030 or ate > 0.15:
-        fail(f"room accuracy gate: end error {end:.4f} m (<= 0.030), ATE "
-             f"{ate:.4f} m (<= 0.15)")
+    if end > gate_end or ate > gate_ate:
+        fail(f"{name} accuracy gate: end error {end:.4f} m (<= {gate_end}),"
+             f" ATE {ate:.4f} m (<= {gate_ate})")
     n_ds = [o["n_ds"] for o in res["outs"]]
     n_eff = [o["n_eff"] for o in res["outs"]]
     steady = res["scan_ms"][WARMUP_SCANS:]
     out = {
-        "phase": "main", "scans": len(traj), "sequence_gen_s": gen_s,
+        "phase": name, "scans": len(traj), "kernel": kernel,
         "ms_per_scan_median": float(np.median(steady)),
         "ms_per_scan_p90": float(np.percentile(steady, 90)),
-        "launches_total": res["total_launches"],
-        "launches_per_scan": float(np.mean(res["launches"][1:])),
-        "host_syncs_per_scan": float(np.mean(res["syncs"][1:])),
+        "launches_total": res["totals"][kernel],
+        "launches_per_scan": float(np.mean(per_scan[1:])),
+        "port_reads_per_scan": float(np.mean(res["syncs"][1:])),
+        "torch_syncs_per_scan": float(np.mean(res["torch_syncs"][1:])),
         "max_memory_allocated": res["peak_bytes"],
         "ate_m": ate, "end_err_m": end,
+        "gate": {"end_err_m": gate_end, "ate_m": gate_ate},
         "n_ds_mean": float(np.mean(n_ds)), "n_ds_min": int(np.min(n_ds)),
         "n_ds_max": int(np.max(n_ds)), "n_eff_mean": float(np.mean(n_eff)),
         "map_voxels_final": res["outs"][-1]["map_voxels"],
-        "k1_checks": res["checks"],
+        "checks": res["checks"],
     }
+    if name in JAX_ROOM_REF:
+        out["jax_cpu_f32_ate_end_m"] = JAX_ROOM_REF[name]
     print(json.dumps(out), flush=True)
     return out
 
@@ -332,14 +508,29 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     try:
         import better_fastlio2_tpu_torch  # noqa: F401
+        from better_fastlio2_tpu_torch.io.synthetic import make_bench_sequence
     except ImportError as e:
         fail(f"the port is not importable from here: {e}")
     card = card_line()
     phase_build()
-    kern = phase_kernels()
-    main_out = phase_main()
-    max_err = max([c["max_abs_err"] for c in kern["checks"]]
-                  + [c["max_abs_err"] for c in main_out["k1_checks"]])
+    k1 = phase_kernels()
+    k2 = phase_k2()
+    t0 = time.perf_counter()
+    groups = make_bench_sequence("room", N_SCANS)
+    print(json.dumps({"phase": "sequence", "scans": N_SCANS,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    main_out = summarize("main", run_main_path(room_config(), groups),
+                         "fused_normal_eqs", 0.030, 0.15)
+    row = summarize("row", run_main_path(row_config(False), groups,
+                                         "fused_hth"), "fused_hth",
+                    0.030, 0.15)
+    row_ext = summarize("row_ext", run_main_path(row_config(True), groups,
+                                                 "fused_hth"), "fused_hth",
+                        0.15, 0.15)
+    k1_err = max(c["max_abs_err"] for c in k1["checks"] + main_out["checks"])
+    k2_err = max(c["max_abs_err"] for c in
+                 k2["checks"] + row["checks"] + row_ext["checks"])
+    k2_t = k2["timing"]["ext"]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_normal_eqs",
@@ -347,12 +538,24 @@ def main() -> None:
         "source": "better_fastlio2_tpu_torch/csrc/fused_normal_eqs.cu",
         "replaces": "better_fastlio2_tpu/ops/pallas_kernels.py:147",
         "launches": main_out["launches_total"],
-        "max_abs_err": max_err,
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": "bytes",
+        "max_abs_err": k1_err,
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_hth",
+        "route": "cuda",
+        "source": "better_fastlio2_tpu_torch/csrc/fused_hth.cu",
+        "replaces": "better_fastlio2_tpu/ops/pallas_kernels.py:262",
+        "launches": row["launches_total"] + row_ext["launches_total"],
+        "max_abs_err": k2_err,
+        "ms": k2_t["ms"],
+        "plain_ms": k2_t["plain_ms"],
+        "bound_ms": k2_t["bound_ms"],
+        "bound_by": k2_t["bound_by"],
+        "library_ms": k2_t["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The port on the card: K1's CUDA kernel against its plain version, the
-wrapper's refusals, and the per-scan pipeline on CUDA against the CPU.
+"""The port on the card: the K1 and K2 CUDA kernels against their plain
+versions, the wrappers' refusals, the grouped insert, and the per-scan
+pipeline on CUDA against the CPU and against itself.
 
 Every test here needs an NVIDIA GPU (`cuda` marker) and skips without
 one.  The file imports no JAX, so it runs on a machine without it:
@@ -20,17 +21,25 @@ millimetres and a point near a voxel face can land in the neighbouring
 voxel (observed on an H100: positions up to 4.3 mm apart, downsampled
 counts of ~2900 voxels up to 1 apart).  So positions agree within 1 cm,
 counts within 0.2 % (at least 3), and both runs track ground truth
-(ATE < 0.10 m).
+(ATE < 0.10 m).  K2 (fused_hth) in both modes within
+ops/kernels.fused_hth_tolerance (1e-5 sqrt(HTH_ii HTH_jj), f32 sums in
+another order), exactly 0 on an all-false mask, bit-identical on a rerun.
+The grouped (sorting) insert on the card is bit-identical to the CPU's
+(integer tables; the points are copied, not summed), and two runs of the
+row pipeline with extrinsic estimation are bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import random_hth
+
 from better_fastlio2_tpu_torch.config import (IkdtreeConfig, LIOConfig,
                                               MappingConfig, ShapesConfig)
 from better_fastlio2_tpu_torch.io.synthetic import (Trajectory,
                                                     make_lio_sequence)
+from better_fastlio2_tpu_torch.map import voxel_hash
 from better_fastlio2_tpu_torch.ops import kernels as tk
 from better_fastlio2_tpu_torch.ops.downsample import voxel_downsample
 from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
@@ -177,3 +186,79 @@ def test_cuda_pipeline_matches_cpu(cuda):
     assert n >= 10
     assert np.sqrt(np.mean(np.square(err))) < 0.10
     assert tk.fused_normal_eqs.launches - before >= n - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extrinsic", [False, True])
+@pytest.mark.parametrize("n", [16384, 10277, 1])
+def test_cuda_fused_hth_matches_plain(cuda, n, extrinsic):
+    ins = [t.to(cuda) for t in random_hth(n, n + extrinsic)]
+    before = tk.fused_hth.launches
+    HTH, HTh = tk.fused_hth(*ins, extrinsic=extrinsic)
+    torch.cuda.synchronize()
+    assert tk.fused_hth.launches == before + 1
+    HTH_r, HTh_r = tk.fused_hth_reference(*ins, extrinsic=extrinsic)
+    tol_H, tol_h = tk.fused_hth_tolerance(*ins, extrinsic=extrinsic)
+    assert bool(((HTH.double() - HTH_r.double()).abs() <= tol_H).all())
+    assert bool(((HTh.double() - HTh_r.double()).abs() <= tol_h).all())
+    assert torch.equal(HTH, HTH.T)
+    # bit-identical on a rerun: no float atomics
+    HTH2, HTh2 = tk.fused_hth(*ins, extrinsic=extrinsic)
+    assert torch.equal(HTH2, HTH) and torch.equal(HTh2, HTh)
+    none = ins[:5] + [torch.zeros_like(ins[5])]
+    H0, h0 = tk.fused_hth(*none, extrinsic=extrinsic)
+    assert int(torch.count_nonzero(H0)) == 0
+    assert int(torch.count_nonzero(h0)) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_hth_refuses_bad_inputs(cuda):
+    ins = [t.to(cuda) for t in random_hth(256, 5)]
+    with pytest.raises(TypeError):
+        tk.fused_hth(*ins[:5], ins[5].float())
+    with pytest.raises(TypeError):
+        tk.fused_hth(ins[0].double(), *ins[1:])
+    with pytest.raises(ValueError):
+        tk.fused_hth(ins[0][::2], *ins[1:])
+    with pytest.raises(ValueError):
+        tk.fused_hth(ins[0].cpu(), *ins[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_insert_matches_cpu(cuda):
+    rng = np.random.default_rng(12)
+    maps = [voxel_hash.make_map(capacity_log2=14, bucket=4, voxel_size=0.5,
+                                device=dev, dense_log2=(6, 6, 5))
+            for dev in ("cpu", cuda)]
+    for _ in range(4):
+        pts = (rng.normal(size=(6000, 3)) * [6.0, 6.0, 2.0]).astype(
+            np.float32)
+        ok = rng.uniform(size=6000) > 0.1
+        maps = [voxel_hash.insert(m, torch.as_tensor(pts, device=m.key.device),
+                                  torch.as_tensor(ok, device=m.key.device),
+                                  max_probe=8) for m in maps]
+        for a, b in zip(maps[0][:4], maps[1][:4]):
+            assert torch.equal(a, b.cpu())
+    assert int((maps[1].count == 4).sum()) > 100  # full buckets were hit
+
+
+def _row_cfg():
+    cfg = _cfg()
+    cfg.ikdtree.single_association = False
+    cfg.mapping.extrinsic_est_en = True
+    return cfg
+
+
+@pytest.mark.cuda
+def test_cuda_row_pipeline_is_deterministic(cuda):
+    groups = _groups()
+    runs = []
+    k2 = tk.fused_hth.launches
+    for _ in range(2):
+        p = LIOPipeline(_row_cfg())
+        for g in groups:
+            p.process_scan(*_args(g))
+        runs.append(np.array(p.trajectory))
+    assert len(runs[0]) >= 10
+    assert tk.fused_hth.launches - k2 >= 2 * (len(runs[0]) - 1)
+    np.testing.assert_array_equal(runs[0], runs[1])

@@ -1,4 +1,15 @@
-"""The fused normal-equations kernel (K1) of the port.
+"""The normal-equations kernels of the port: K1 (fused_normal_eqs) and K2
+(fused_hth).
+
+K2 on the CPU, on chip_smoke.random_hth's inputs (the ones the card's
+check takes): the plain version against the Pallas kernel in interpret
+mode and against the JAX plain version, as tests/test_pallas_kernels.py
+holds them: both modes, N = 5000 (ragged against the 2048-row tile), 2048
+and 1, and an all-false mask (exactly zero).  f32 against the Pallas
+kernel within ops/kernels.fused_hth_tolerance (1e-5 sqrt(HTH_ii HTH_jj),
+f32 sums in another order); f64 against the JAX plain version to 1e-12.
+
+K1:
 
 On the CPU: the SoA packing and the plain version against the JAX
 reference — the Pallas kernel in interpret mode, as tests/test_fused_solve
@@ -17,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from chip_smoke import random_hth
 
 from better_fastlio2_tpu.ops import pallas_kernels as jpk
 from better_fastlio2_tpu_torch.ops import _build
@@ -121,3 +133,72 @@ def test_build_targets_sm90a_with_exact_division():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "prec-div" not in flags
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+@pytest.mark.parametrize("extrinsic", [False, True])
+@pytest.mark.parametrize("n,sel", [(5000, "random"), (2048, "all"),
+                                   (1, "all"), (2048, "none")])
+def test_fused_hth_plain_matches_pallas(n, sel, extrinsic):
+    t_ins = random_hth(n, n + extrinsic, sel)  # the card's check's inputs
+    ins = [t.numpy() for t in t_ins]
+    HTH_k, HTh_k = jpk.fused_hth(*map(jnp.asarray, ins), extrinsic=extrinsic,
+                                 interpret=True)
+    before = tk.fused_hth.launches
+    HTH_t, HTh_t = tk.fused_hth(*t_ins, extrinsic=extrinsic)
+    assert tk.fused_hth.launches == before  # CPU: the plain version
+    assert HTH_t.dtype == torch.float32 and tuple(HTH_t.shape) == (12, 12)
+    HTH_tol, HTh_tol = tk.fused_hth_tolerance(*t_ins, extrinsic=extrinsic)
+    dH = (torch.as_tensor(np.array(HTH_k)).double() - HTH_t.double()).abs()
+    dh = (torch.as_tensor(np.array(HTh_k)).double() - HTh_t.double()).abs()
+    assert bool((dH <= HTH_tol).all()) and bool((dh <= HTh_tol).all())
+    if sel == "none":
+        assert torch.count_nonzero(HTH_t) == 0
+        assert torch.count_nonzero(HTh_t) == 0
+    if not extrinsic:  # the extrinsic columns are exactly zero
+        assert torch.count_nonzero(HTH_t[6:]) == 0
+        assert torch.count_nonzero(HTh_t[6:]) == 0
+    # f64: the plain versions agree to rounding
+    HTH_j, HTh_j = jpk.fused_hth_reference(
+        *(jnp.asarray(a, jnp.float64) for a in ins[:5]), jnp.asarray(ins[5]),
+        extrinsic=extrinsic)
+    HTH_d, HTh_d = tk.fused_hth(*(t.double() for t in t_ins[:5]), t_ins[5],
+                                extrinsic=extrinsic)
+    assert HTH_d.dtype == torch.float64  # f64 stays f64
+    np.testing.assert_allclose(HTH_d.numpy(), np.asarray(HTH_j), rtol=1e-12,
+                               atol=1e-12 * max(1.0, float(np.abs(
+                                   np.asarray(HTH_j)).max())))
+    np.testing.assert_allclose(HTh_d.numpy(), np.asarray(HTh_j), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_fused_hth_tolerance_bites():
+    """A relative error of 1e-4 on one diagonal entry, or a lost lane,
+    fails the tolerance; the exact result passes it."""
+    t_ins = random_hth(4096, 9)
+    HTH, HTh = tk.fused_hth_reference(*(t.double() for t in t_ins[:5]),
+                                      t_ins[5], extrinsic=True)
+    tol_H, tol_h = tk.fused_hth_tolerance(*t_ins, extrinsic=True)
+    assert bool((tol_H > 0).all())
+    bad = HTH.clone()
+    bad[7, 7] *= 1 + 1e-4
+    assert not bool(((bad - HTH).abs() <= tol_H).all())
+    lost = t_ins[5].clone()
+    lost[int(torch.nonzero(lost)[0])] = False
+    H2, h2 = tk.fused_hth_reference(*(t.double() for t in t_ins[:5]), lost,
+                                    extrinsic=True)
+    assert not (bool(((H2 - HTH).abs() <= tol_H).all())
+                and bool(((h2 - HTh).abs() <= tol_h).all()))
+
+
+def test_fused_hth_wrapper_refuses():
+    """sel must be a bool mask (w is applied twice, exact only for 0/1);
+    no fallback for a tensor that is neither on the CPU nor on CUDA."""
+    t_ins = random_hth(64, 1)
+    with pytest.raises(TypeError, match="bool"):
+        tk.fused_hth(*t_ins[:5], t_ins[5].float())
+    meta = [t.to("meta") for t in t_ins]
+    with pytest.raises(ValueError):
+        tk.fused_hth(*meta)
+    with pytest.raises(ValueError):
+        tk.fused_hth(*t_ins[:5], meta[5])
+    assert "fused_hth" in _build.SOURCES

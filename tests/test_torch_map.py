@@ -3,8 +3,9 @@
 Seeded numpy inputs through the JAX reference and the PyTorch port on the
 CPU.  Exact where the reference is exact: the downsample's surviving set
 and order (including truncation past out_size and drop_high_z), the hash,
-and the map tables after inserts (key/count/points/dense bit for bit,
-negative coordinates and same-voxel duplicates included).  kNN distances
+and the map tables after inserts, pre-grouped and grouped (key/count/
+points/dense bit for bit, negative coordinates, same-voxel duplicates and
+full buckets included).  kNN distances
 in f64 to 1e-9; a neighbour-set mismatch would come from a distance tie,
 which these continuous inputs do not produce.
 """
@@ -122,11 +123,36 @@ def test_insert_bit_exact(dense_log2):
     assert int(tvh.num_voxels(mt)) == int(jvh.num_voxels(mj))
 
 
-def test_insert_requires_pre_grouped():
-    _, mt = _maps(None)
-    with pytest.raises(NotImplementedError):
-        tvh.insert(mt, torch.zeros(4, 3, dtype=torch.float64),
-                   torch.ones(4, dtype=torch.bool))
+@pytest.mark.parametrize("dense_log2", [None, (5, 5, 4)])
+def test_grouped_insert_bit_exact(dense_log2):
+    """The sorting insert (pre_grouped=False) on raw points: many rows per
+    voxel in every batch, invalid rows among them, buckets filling up and
+    overflowing; the tables stay bit-exact with JAX's."""
+    rng = np.random.default_rng(4)
+    mj, mt = _maps(dense_log2)
+    n_rep = 0
+    for _ in range(4):
+        pts = _scan(rng, 1500, spread=2.5)
+        ok = rng.uniform(size=1500) > 0.1
+        ijk = np.floor(pts[ok] / 0.5)
+        n_rep += len(ijk) - len(np.unique(ijk, axis=0))
+        mj = jvh.insert(mj, jnp.asarray(pts), jnp.asarray(ok), max_probe=8)
+        mt = tvh.insert(mt, _t(pts), _t(ok), max_probe=8)
+        _assert_maps_equal(mt, mj)
+    assert n_rep > 1000  # most rows share a voxel with another row
+    assert (np.asarray(mj.count) == 4).any()  # full buckets were hit
+    assert int(tvh.num_voxels(mt)) == int(jvh.num_voxels(mj))
+
+
+def test_lexsort_matches_numpy():
+    """The grouped insert's sort: last key primary, ties in input order."""
+    rng = np.random.default_rng(5)
+    keys = [rng.integers(0, 4, size=500).astype(np.int64) for _ in range(3)]
+    keys.append(np.where(rng.uniform(size=500) > 0.2,
+                         rng.integers(0, 6, size=500), 2147483647))
+    np.testing.assert_array_equal(
+        tvh._lexsort([torch.as_tensor(k) for k in keys]).numpy(),
+        np.lexsort(keys))
 
 
 def _filled_maps(dense_log2, seed=3):

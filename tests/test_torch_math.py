@@ -303,6 +303,7 @@ def test_update_iterated_fused_matches_jax(early):
     xpj, Ppj, _, ij = jesikf.update_iterated(xj, _j(P0), fj, aj, max_iter=4,
                                              n_cols=6)
     ft, at = tmeas.make_measure_fn(mt, _t(scan), torch.as_tensor(valid),
+                                   single_association=True, fused_solve=True,
                                    early_converge=early)
     xpt, Ppt, _, it = tesikf.update_iterated(xt, _t(P0), ft, at, max_iter=4,
                                              n_cols=6)
@@ -314,21 +315,17 @@ def test_update_iterated_fused_matches_jax(early):
     assert float(torch.linalg.vector_norm(xpt.pos)) < 0.02
 
 
-def test_update_iterated_rejects_row_path():
-    """The row path is refused once, by the pipeline's config check (the
-    measure closure carries the fused path only), and by update_iterated
-    when asked for the 12 columns of extrinsic estimation."""
-    from better_fastlio2_tpu_torch.config import LIOConfig
-    from better_fastlio2_tpu_torch.pipeline.lio import check_config
-
-    mj, mt, scan, xj, xt, P0 = _toy_problem_f64(n=64)
-    for opt in ("fused_solve", "extrinsic"):
-        cfg = LIOConfig()
-        cfg.ikdtree.single_association = True
-        cfg.ikdtree.fused_solve = opt != "fused_solve"
-        cfg.mapping.extrinsic_est_en = opt == "extrinsic"
-        cfg.mapping.surf_leaf_size = cfg.ikdtree.filter_size_map_min
-        with pytest.raises(NotImplementedError, match="fused_hth"):
-            check_config(cfg)
-    with pytest.raises(NotImplementedError):
-        tesikf.update_iterated(xt, _t(P0), None, None, n_cols=12)
+def test_update_iterated_runs_row_path():
+    """The row path slice 1 refused (fused_solve off, and the 12 columns of
+    extrinsic estimation) runs: on the toy problem both widths converge
+    near the true lidar pose from a prior 5-8 cm off.  Its parity with the
+    JAX package is held in tests/test_torch_esikf_row.py."""
+    _, mt, scan, _, xt, P0 = _toy_problem_f64()
+    valid = torch.ones(len(scan), dtype=torch.bool)
+    for ext in (False, True):
+        f, a = tmeas.make_measure_fn(mt, _t(scan), valid, extrinsic_est=ext)
+        xp, Pp, _, info = tesikf.update_iterated(
+            xt, _t(P0), f, a, max_iter=4, n_cols=12 if ext else 6)
+        lidar = xp.pos + tso3.quat_rotate(xp.rot, xp.off_t)
+        assert float(torch.linalg.vector_norm(lidar)) < 0.02
+        assert bool(torch.isfinite(Pp).all()) and float(info["n_eff"]) > 900

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where a scan's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python tools/profile_torch_scan.py [--warmup 40] [--window 20]
+    python tools/profile_torch_scan.py [--config {fused,row,row_ext}]
+                                       [--warmup 40] [--window 20]
 
-Runs the main path of chip_smoke.py (LIOPipeline at the room bench shapes
-on make_bench_sequence("room")) for --warmup scans, then records --window
-steady scans under torch.profiler (CPU and CUDA activities).  Prints the
-card's name and power limit and one JSON line:
+Runs one main path of chip_smoke.py (LIOPipeline at the room bench shapes
+on make_bench_sequence("room")): `fused` the single-association fused
+solve (slice 1, K1), `row` the ESIKF row path with the reference
+re-association (K2), `row_ext` the row path with extrinsic estimation.  It
+runs --warmup scans, then records --window steady scans under
+torch.profiler (CPU and CUDA activities).  Prints the card's name and
+power limit and one JSON line:
 
   wall_ms_per_scan        host clock per scan (each scan ends in the info
                           readback, which waits for the device)
@@ -20,9 +24,19 @@ card's name and power limit and one JSON line:
                           launched), device_span_ms (first to last of those
                           on the device timeline) and launches_per_scan;
                           lio.update includes lio.associate and lio.refresh
-  k1_device_us_per_call   device time of fused_normal_eqs' two kernels
-                          (neq_stage1 + neq_stage2) per call
+  kernels                 for K1 (fused_normal_eqs: neq_stage1 +
+                          neq_stage2) and K2 (fused_hth: hth_stage1 +
+                          hth_stage2): calls per scan and device
+                          microseconds per call
   top_kernels             the 15 largest device-time entries by name
+  syncs_per_scan          over SYNC_SCANS further scans, unprofiled:
+                          `port_reads`, the device->host reads the port
+                          makes through utils.device.to_host; `torch`,
+                          every synchronising call torch itself reports
+                          under torch.cuda.set_sync_debug_mode("warn"); and
+                          `sites`, those torch syncs per scan by the line
+                          of the port that made them (the innermost frame
+                          in better_fastlio2_tpu_torch/), largest first
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -30,14 +44,20 @@ Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
+
+SYNC_SCANS = 5  # unprofiled scans over which the syncs are counted
+PORT = "better_fastlio2_tpu_torch"
 
 
 def _dev_time(ev) -> float:
@@ -65,6 +85,8 @@ def _union_us(intervals) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("fused", "row", "row_ext"),
+                    default="fused")
     ap.add_argument("--warmup", type=int, default=40)
     ap.add_argument("--window", type=int, default=20)
     args = ap.parse_args()
@@ -75,12 +97,16 @@ def main() -> None:
 
     from better_fastlio2_tpu_torch.io.synthetic import make_bench_sequence
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+    from better_fastlio2_tpu_torch.utils.device import host_syncs
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
     card = cs.card_line()
-    groups = make_bench_sequence("room", args.warmup + args.window + 1)
-    pipe = LIOPipeline(cs.room_config())
+    groups = make_bench_sequence(
+        "room", args.warmup + args.window + SYNC_SCANS + 1)
+    cfg = {"fused": cs.room_config, "row": lambda: cs.row_config(False),
+           "row_ext": lambda: cs.row_config(True)}[args.config]()
+    pipe = LIOPipeline(cfg)
 
     def feed(g):
         return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
@@ -99,6 +125,32 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     n = len(window)
+
+    sync_window = groups[args.warmup + args.window:][:SYNC_SCANS]
+    sites: collections.Counter = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # called while the syncing op is on the stack: name the port's
+        # innermost frame (or torch's own line when the port has none)
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack() if PORT in f.filename]
+        f = ours[-1] if ours else None
+        where = (f"{f.filename[f.filename.rindex(PORT):]}:{f.lineno}"
+                 if f else f"{filename}:{lineno}")
+        sites[where] += 1
+
+    host_syncs.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for g in sync_window:
+                feed(g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n_sync = max(len(sync_window), 1)
 
     events = prof.events()
     spans = [e for e in events if e.name.startswith("lio.")]
@@ -130,19 +182,28 @@ def main() -> None:
         rec[0] += e.time_range.elapsed_us()
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    k1 = {k: v for k, v in by_name.items() if "neq_stage" in k}
-    k1_calls = sum(v[1] for k, v in k1.items() if "neq_stage1" in k)
+    kern = {}
+    for name, prefix in (("fused_normal_eqs", "neq_stage"),
+                         ("fused_hth", "hth_stage")):
+        rows = {k: v for k, v in by_name.items() if prefix in k}
+        calls = sum(v[1] for k, v in rows.items() if prefix + "1" in k)
+        kern[name] = {"calls_per_scan": calls / n,
+                      "device_us_per_call": (sum(v[0] for v in rows.values())
+                                             / calls if calls else None)}
     print(card, flush=True)
     print(json.dumps({
-        "scans": n, "first_scan": args.warmup,
+        "config": args.config, "scans": n, "first_scan": args.warmup,
         "wall_ms_per_scan": 1e3 * wall_s / n,
         "device_busy_share": busy_us / (1e6 * wall_s),
         "device_ms_per_scan": dev_us / 1e3 / n,
         "launches_per_scan": len(dev) / n,
         "stages": stages,
-        "k1_calls_per_scan": k1_calls / n,
-        "k1_device_us_per_call": (sum(v[0] for v in k1.values()) / k1_calls
-                                  if k1_calls else None),
+        "kernels": kern,
+        "syncs_per_scan": {"scans": len(sync_window),
+                           "port_reads": host_syncs.count / n_sync,
+                           "torch": sum(sites.values()) / n_sync,
+                           "sites": {k: v / n_sync
+                                     for k, v in sites.most_common()}},
         "top_kernels": [{"name": k[:120], "device_ms_per_scan": v[0] / 1e3 / n,
                          "per_scan": v[1] / n} for k, v in top],
     }), flush=True)
