@@ -2,8 +2,10 @@
 
 Each `csrc/*.cu` file compiles with nvcc for sm_90a into its own shared
 library under `build/kernels/` at the repository root, at first use, and
-loads with ctypes.  A library is rebuilt when its source is newer.  All
-sources compile in parallel (one nvcc each).  Nothing here runs at import
+loads with ctypes.  A library is rebuilt when its source, or a shared
+`csrc/*.cuh` header, is newer.  All sources compile in parallel (one nvcc
+each).  ptxas reports each kernel's registers, shared memory and spills
+(-Xptxas -v); build_all returns that report.  Nothing here runs at import
 time: the CPU tests import every module of the package and have no nvcc.
 
 Never add --use_fast_math or -prec-div=false: the kernels divide to find
@@ -25,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -47,18 +49,22 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared
+    csrc/*.cuh header."""
     lib = _lib_path(name)
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
     return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+            or lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs))
 
 
-def build_all(names=None) -> list[str]:
-    """Compile the named sources (default: all stale ones), one nvcc per
-    source, all started together.  Returns the names compiled; raises with
-    the compiler's output on failure."""
-    names = [n for n in (names or SOURCES) if _stale(n)]
+def build_all(names=None, force: bool = False) -> dict[str, str]:
+    """Compile the named sources (default: all; only the stale ones unless
+    `force`), one nvcc per source, all started together.  Returns the
+    compiler's output (the ptxas report) of each source compiled; raises
+    with it on failure."""
+    names = [n for n in (names or SOURCES) if force or _stale(n)]
     if not names:
-        return []
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -68,16 +74,17 @@ def build_all(names=None) -> list[str]:
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    errors = []
+    errors, reports = [], {}
     for name, tmp, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {name}.cu:\n{out}")
         else:
             os.replace(tmp, _lib_path(name))
+            reports[name] = out
     if errors:
         raise RuntimeError("\n".join(errors))
-    return names
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

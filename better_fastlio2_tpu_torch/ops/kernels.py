@@ -25,9 +25,12 @@ normal equations without materialising them:
     HTH  = sum rows^T rows  (12, 12),   HTh = sum rows * (-pd2 * w)  (12,)
 
 On a CUDA tensor `fused_normal_eqs` and `fused_hth` launch the
-hand-written kernels csrc/fused_normal_eqs.cu and csrc/fused_hth.cu; on a
-CPU tensor they run the plain versions `fused_normal_eqs_reference` and
-`fused_hth_reference`.  Nothing else falls back.
+hand-written kernels csrc/fused_normal_eqs.cu and csrc/fused_hth.cu, one
+thread-block cluster per call; on a CPU tensor they run the plain versions
+`fused_normal_eqs_reference` and `fused_hth_reference`.  Nothing else
+falls back.  `_neq_rows` and `_hth_rows` build the rows the kernels reduce
+without materialising them; chip_smoke.py times a matrix product on them
+as each kernel's library yardstick.
 """
 
 from __future__ import annotations
@@ -66,27 +69,30 @@ def pack_soa(p_imu, normal, d, invb, fit_ok, assoc_ijk, valid):
     ])
 
 
+def _neq_rows(soa: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The gated (N, 8) rows [n | p_imu x R^T n | -pd2 | 1] * w of K1 under
+    the pose in `params`, in the dtype of `soa`: G = rows^T rows."""
+    params = params.to(soa.dtype)
+    R = params[:9].reshape(3, 3)
+    p_imu = soa[0:3].T
+    n = soa[3:6].T
+    pd2 = torch.sum(n * (p_imu @ R.T + params[9:12]), dim=-1) + soa[_D]
+    w = soa[_OK] * (torch.abs(pd2) * soa[_INVB] < 0.1).to(soa.dtype)
+    A = torch.linalg.cross(p_imu, n @ R, dim=-1)  # p_imu x R^T n, batched
+    return torch.cat([n, A, -pd2[:, None], torch.ones_like(pd2)[:, None]],
+                     dim=1) * w[:, None]
+
+
 def fused_normal_eqs_reference(soa: torch.Tensor, params: torch.Tensor
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (pallas_kernels.fused_normal_eqs_reference).
     `params` is f32 even in f64 runs; the pose is read from it as is."""
-    params = params.to(soa.dtype)
-    R = params[:9].reshape(3, 3)
-    t = params[9:12]
-    vs = params[12]
-    p_imu = soa[0:3].T
-    n = soa[3:6].T
-    pw = p_imu @ R.T + t
-    pd2 = torch.sum(n * pw, dim=-1) + soa[_D]
-    w = soa[_OK] * (torch.abs(pd2) * soa[_INVB] < 0.1).to(soa.dtype)
-    C = n @ R  # R^T n, batched
-    A = torch.linalg.cross(p_imu, C, dim=-1)
-    rows = torch.cat([n, A, -pd2[:, None], torch.ones_like(pd2)[:, None]],
-                     dim=1) * w[:, None]
-    G = rows.T @ rows
+    rows = _neq_rows(soa, params)
+    p = params.to(soa.dtype)
+    pw = soa[0:3].T @ p[:9].reshape(3, 3).T + p[9:12]
     moved = soa[_VAL] * torch.any(
-        torch.floor(pw / vs) != soa[_AIX:_AIX + 3].T, dim=-1).to(soa.dtype)
-    return G, torch.sum(moved)
+        torch.floor(pw / p[12]) != soa[_AIX:_AIX + 3].T, dim=-1).to(soa.dtype)
+    return rows.T @ rows, torch.sum(moved)
 
 
 def fused_normal_eqs_tolerance(soa: torch.Tensor, params: torch.Tensor,
@@ -125,18 +131,54 @@ def fused_normal_eqs_tolerance(soa: torch.Tensor, params: torch.Tensor,
     return G_tol, int((near & (s[_VAL] != 0)).sum()), int(edge.sum())
 
 
-def _launch_fn():
+# ctypes signatures of each library's launch function (csrc/<name>.cu)
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "fused_normal_eqs": [_VP, _CI, _VP, _CI, _VP, _VP],
+    "fused_hth": [_VP] * 6 + [_CI, _CI, _VP, _VP],
+}
+_launchers: dict = {}  # name -> its launch function, once set up
+_CPU = torch.device("cpu")
+# per library: the thread-block cluster size its setup took, and
+# cudaOccupancyMaxActiveClusters at that size (filled at first use)
+cluster_info: dict[str, dict[str, int]] = {}
+
+
+def _launcher(name: str):
+    """The launch function of csrc/<name>.cu: built, loaded and set up
+    (the cluster size picked) at the first call in the process, then a
+    dict lookup."""
+    fn = _launchers.get(name)
+    if fn is not None:
+        return fn
     from . import _build
 
-    lib = _build.load("fused_normal_eqs")
-    fn = lib.fused_normal_eqs_launch
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, ctypes.c_int, vp, vp, ctypes.c_int, vp, vp, vp]
-        fn.restype = ctypes.c_int
-        lib.fused_normal_eqs_blocks.argtypes = [ctypes.c_int]
-        lib.fused_normal_eqs_blocks.restype = ctypes.c_int
-    return lib
+    lib = _build.load(name)
+    setup = getattr(lib, f"{name}_setup")
+    setup.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    setup.restype = ctypes.c_int
+    cs, active = ctypes.c_int(), ctypes.c_int()
+    err = setup(ctypes.byref(cs), ctypes.byref(active))
+    if err != 0:
+        raise RuntimeError(f"{name}: cluster setup failed (CUDA error {err})")
+    cluster_info[name] = {"cluster": cs.value,
+                          "max_active_clusters": active.value}
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    _launchers[name] = fn
+    return fn
+
+
+def _launch(fn, dev: torch.device, *args) -> int:
+    """Call a launch function on the current stream of `dev` (PyTorch's
+    raw stream handle: a capturing CUDA graph's stream during capture),
+    entering `dev` only when it is not the current device."""
+    idx = dev.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
@@ -145,14 +187,17 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
     `params` ((16,) f32: R row-major 9 | t 3 | voxel size | 0 0 0).
 
     CUDA tensors: one launch of the CUDA kernel on the current stream
-    (counted in `fused_normal_eqs.launches`); soa must be a contiguous
-    (16, N) f32 tensor and params a contiguous (16,) f32 tensor on the same
-    device.  CPU tensors: the plain version.  Anything else raises."""
-    if soa.device.type == "cpu" and params.device.type == "cpu":
+    (counted in `fused_normal_eqs.launches`), G and n_moved views of one
+    (9, 8) buffer (G its first 64 floats, n_moved the 65th); soa must be
+    a contiguous (16, N) f32 tensor and params a contiguous (16,) f32
+    tensor on the same device.  CPU tensors: the plain version.  Anything
+    else raises."""
+    dev = soa.device
+    if dev.type == "cpu" and params.device.type == "cpu":
         return fused_normal_eqs_reference(soa, params)
-    if soa.device.type != "cuda" or params.device != soa.device:
+    if dev.type != "cuda" or params.device != dev:
         raise ValueError(
-            f"fused_normal_eqs: soa on {soa.device}, params on "
+            f"fused_normal_eqs: soa on {dev}, params on "
             f"{params.device}; both must be on one CUDA device (or the CPU)")
     if soa.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("fused_normal_eqs: the CUDA kernel takes float32 "
@@ -160,7 +205,7 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
     if soa.dim() != 2 or soa.shape[0] != SOA_CH or soa.shape[1] < 1:
         raise ValueError(f"fused_normal_eqs: soa must be ({SOA_CH}, N>=1), "
                          f"got {tuple(soa.shape)}")
-    if tuple(params.shape) != (16,):
+    if params.shape != (16,):
         raise ValueError(f"fused_normal_eqs: params must be (16,), got "
                          f"{tuple(params.shape)}")
     if not (soa.is_contiguous() and params.is_contiguous()):
@@ -169,23 +214,15 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
     n = soa.shape[1]
     if n >= 2 ** 31 // SOA_CH:
         raise ValueError(f"fused_normal_eqs: N={n} too large")
-    lib = _launch_fn()
-    nblocks = lib.fused_normal_eqs_blocks(n)
-    part_g = torch.empty((nblocks, 36), dtype=torch.float32,
-                         device=soa.device)
-    part_mv = torch.empty(nblocks, dtype=torch.int32, device=soa.device)
-    G = torch.empty((8, 8), dtype=torch.float32, device=soa.device)
-    n_moved = torch.empty((), dtype=torch.float32, device=soa.device)
-    with torch.cuda.device(soa.device):
-        err = lib.fused_normal_eqs_launch(
-            soa.data_ptr(), params.data_ptr(), n, part_g.data_ptr(),
-            part_mv.data_ptr(), nblocks, G.data_ptr(), n_moved.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    fn = _launcher("fused_normal_eqs")
+    out = torch.empty((9, 8), dtype=torch.float32, device=dev)
+    err = _launch(fn, dev, soa.data_ptr(), soa.stride(0), params.data_ptr(),
+                  n, out.data_ptr())
     if err != 0:
         raise RuntimeError(f"fused_normal_eqs: CUDA launch failed (error "
                            f"{err})")
     fused_normal_eqs.launches += 1
-    return G, n_moved
+    return out[:8], out[8, 0]
 
 
 fused_normal_eqs.launches = 0
@@ -233,22 +270,6 @@ def fused_hth_tolerance(pts_body, p_imu, normals, C, pd2, sel,
             rtol * torch.sqrt(diag * s))
 
 
-def _hth_lib():
-    from . import _build
-
-    lib = _build.load("fused_hth")
-    fn = lib.fused_hth_launch
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp, vp, vp]
-        fn.restype = ci
-        lib.fused_hth_blocks.argtypes = [ci]
-        lib.fused_hth_blocks.restype = ci
-        lib.fused_hth_partial_width.argtypes = []
-        lib.fused_hth_partial_width.restype = ci
-    return lib
-
-
 def fused_hth(pts_body, p_imu, normals, C, pd2, sel, extrinsic: bool = False
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(HTH (12, 12), HTh (12,)) of the masked point-to-plane rows
@@ -256,51 +277,53 @@ def fused_hth(pts_body, p_imu, normals, C, pd2, sel, extrinsic: bool = False
     applies w twice (rows * w against -pd2 * w), exact only for 0/1.
 
     CUDA tensors: one launch of the CUDA kernel on the current stream
-    (counted in `fused_hth.launches`), f32 outputs; pts_body, p_imu,
-    normals and C contiguous (N, 3) f32, pd2 contiguous (N,) f32, sel
-    contiguous (N,) bool, all on one device.  CPU tensors: the plain
+    (counted in `fused_hth.launches`), f32 outputs that are views of one
+    (13, 12) buffer (HTH its first 12 rows, HTh the last); pts_body,
+    p_imu, normals and C contiguous (N, 3) f32, pd2 contiguous (N,) f32,
+    sel contiguous (N,) bool, all on one device.  CPU tensors: the plain
     version in the input dtype.  Anything else raises."""
+    # tuple compares, not a generator per check: on an idle card the
+    # wrapper's host time is the call's time
     ins = (pts_body, p_imu, normals, C, pd2, sel)
     if sel.dtype != torch.bool:
         raise TypeError(f"fused_hth: sel must be a bool mask, got "
                         f"{sel.dtype}")
-    if all(t.device.type == "cpu" for t in ins):
-        return fused_hth_reference(*ins, extrinsic=extrinsic)
     dev = p_imu.device
-    if dev.type != "cuda" or any(t.device != dev for t in ins):
+    devs = (pts_body.device, dev, normals.device, C.device, pd2.device,
+            sel.device)
+    if devs == (_CPU,) * 6:
+        return fused_hth_reference(*ins, extrinsic=extrinsic)
+    if dev.type != "cuda" or devs != (dev,) * 6:
         raise ValueError(
-            "fused_hth: inputs on " + ", ".join(str(t.device) for t in ins)
+            "fused_hth: inputs on " + ", ".join(map(str, devs))
             + "; all must be on one CUDA device (or the CPU)")
-    if any(t.dtype != torch.float32 for t in ins[:5]):
+    dtypes = (pts_body.dtype, p_imu.dtype, normals.dtype, C.dtype, pd2.dtype)
+    if dtypes != (torch.float32,) * 5:
         raise TypeError("fused_hth: the CUDA kernel takes float32 points, "
                         "normals and residuals, got "
-                        + ", ".join(str(t.dtype) for t in ins[:5]))
+                        + ", ".join(map(str, dtypes)))
     n = p_imu.shape[0] if p_imu.dim() == 2 else -1
-    if (n < 1 or any(tuple(t.shape) != (n, 3) for t in ins[:4])
-            or any(tuple(t.shape) != (n,) for t in ins[4:])):
+    shapes = (pts_body.shape, p_imu.shape, normals.shape, C.shape, pd2.shape,
+              sel.shape)
+    if n < 1 or shapes != ((n, 3),) * 4 + ((n,),) * 2:
         raise ValueError("fused_hth: expected four (N, 3) and two (N,) "
                          "tensors with N >= 1, got "
-                         + ", ".join(str(tuple(t.shape)) for t in ins))
-    if not all(t.is_contiguous() for t in ins):
+                         + ", ".join(str(tuple(s)) for s in shapes))
+    if not (pts_body.is_contiguous() and p_imu.is_contiguous()
+            and normals.is_contiguous() and C.is_contiguous()
+            and pd2.is_contiguous() and sel.is_contiguous()):
         raise ValueError("fused_hth: inputs must be contiguous")
     if n >= 2 ** 31 // 3:
         raise ValueError(f"fused_hth: N={n} too large")
-    lib = _hth_lib()
-    nblocks = lib.fused_hth_blocks(n)
-    part = torch.empty((nblocks, lib.fused_hth_partial_width()),
-                       dtype=torch.float32, device=dev)
-    HTH = torch.empty((12, 12), dtype=torch.float32, device=dev)
-    HTh = torch.empty(12, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.fused_hth_launch(
-            pts_body.data_ptr(), p_imu.data_ptr(), normals.data_ptr(),
-            C.data_ptr(), pd2.data_ptr(), sel.data_ptr(), n, int(extrinsic),
-            part.data_ptr(), nblocks, HTH.data_ptr(), HTh.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    fn = _launcher("fused_hth")
+    out = torch.empty((13, 12), dtype=torch.float32, device=dev)
+    err = _launch(fn, dev, pts_body.data_ptr(), p_imu.data_ptr(),
+                  normals.data_ptr(), C.data_ptr(), pd2.data_ptr(),
+                  sel.data_ptr(), n, int(extrinsic), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"fused_hth: CUDA launch failed (error {err})")
     fused_hth.launches += 1
-    return HTH, HTh
+    return out[:12], out[12]
 
 
 fused_hth.launches = 0

@@ -6,10 +6,21 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build   — compile every kernel of the port from its sources (nvcc,
                sm_90a), one compiler per source, all started together;
+               print each kernel's registers, shared memory and spills
+               (ptxas -v; any spill fails), and the thread-block cluster
+               size each kernel's setup took on this card;
   2. kernels — hold K1 (fused_normal_eqs) against its plain PyTorch
                version on the card at the main path's shapes (and ragged
-               ones), and time both with CUDA events (median of >= 50 runs
-               after warmup);
+               ones; a view with a storage offset, which takes the
+               kernel's scalar-load branch, must give the same bits), and
+               time it: `ms` the wall time of one call, wrapper included
+               (CUDA events around each call, median of 100 after
+               warmup); `device_us` the device time per call (100 calls
+               captured in one CUDA graph, replayed with events around;
+               `device_us_n1` the same at N = 1, the fixed cost); the
+               plain version; the library call rows^T rows on prebuilt
+               (N, 8) rows; and `launch_floor_us`, the graph time of a
+               one-element fill, the least any launch costs;
   3. k2      — the same for K2 (fused_hth) in both modes, plus an all-false
                mask (exactly 0), and the library call hx^T hx + hx^T h on
                prebuilt (N, 12) rows;
@@ -28,7 +39,13 @@ Phases (any failure exits non-zero and prints no result line):
                on three, K1 never; the room gate;
   6. row_ext — the row path with extrinsic estimation (12 gain columns);
                end error and ATE <= 0.15 m, looser than the room gate
-               because the JAX package itself reads 0.08 m there.
+               because the JAX package itself reads 0.08 m there;
+  7. library_graph — the library calls' device time per call (graph
+               replay), after the paths so that the cuBLAS workspace of
+               the capturing stream does not count in their peak memory;
+  8. one_launch — under torch.profiler, one call of K1 and of K2 in each
+               mode runs exactly one device kernel (run last, so that the
+               profiler cannot touch the timed paths).
 
 Output: one line per phase, the card's name and power limit, one
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Needs a
@@ -37,8 +54,10 @@ CUDA device; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +69,8 @@ N_SCANS = 240
 WARMUP_SCANS = 20
 CHECK_SCANS = (60, 130, 200)  # scans whose kernel inputs are re-checked
 TIMING_RUNS = 100
+GRAPH_CALLS = 100  # calls captured in one CUDA graph for device_us
+GRAPH_REPLAYS = 20
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 K1_FLOPS_PER_LANE = 140  # transform, residual, gate, rows, 36 FMAs, voxel test
@@ -92,7 +113,8 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 
 def time_ms(fn, runs: int = TIMING_RUNS, warmup: int = 10) -> float:
-    """Median device time of one call, CUDA events around each call."""
+    """Median time of one call, CUDA events around each call: on an idle
+    card, the host's time to issue it (wrapper included)."""
     import torch
 
     for _ in range(warmup):
@@ -108,6 +130,86 @@ def time_ms(fn, runs: int = TIMING_RUNS, warmup: int = 10) -> float:
         evs.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def graph_us(fn, calls: int = GRAPH_CALLS,
+             replays: int = GRAPH_REPLAYS) -> float:
+    """Device microseconds per call, free of the host: `calls` calls of
+    `fn` captured in one CUDA graph, replayed `replays` times with CUDA
+    events around each replay; the median replay over `calls`."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capturing stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(replays):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median([s.elapsed_time(e) for s, e in evs])) / calls
+
+
+def device_kernels(fn) -> list[str]:
+    """The names of the device kernels that one call of `fn` runs, from
+    torch.profiler's CUDA activities (after a call outside the profiler,
+    so that building and setup are not in it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def offset_view(t):
+    """A copy of `t` that is a view one element into a fresh buffer: equal
+    values at an address that is not 16-byte aligned."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def ptxas_report(out: str) -> list[dict]:
+    """Registers, shared memory and spills of each kernel in one source's
+    nvcc -Xptxas -v output."""
+    recs = []
+    for block in out.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        m = re.search(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?", mangled)
+        name = (m.group(1) + {"1": "<true>", "0": "<false>", None: ""}[
+            m.group(2)]) if m else mangled
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        recs.append({"kernel": name,
+                     "registers": int(regs.group(1)) if regs else None,
+                     "smem_bytes": int(smem.group(1)) if smem else 0,
+                     "spill_stores": int(spill.group(1)) if spill else None,
+                     "spill_loads": int(spill.group(2)) if spill else None})
+    return recs
 
 
 def random_soa(n: int, seed: int):
@@ -232,17 +334,29 @@ def compare_k2(ins, extrinsic: bool, HTH_k, HTh_k) -> dict:
 
 
 def phase_build() -> None:
-    from better_fastlio2_tpu_torch.ops import _build
+    from better_fastlio2_tpu_torch.ops import _build, kernels
 
     t0 = time.perf_counter()
-    built = _build.build_all()
+    reports = _build.build_all(force=True)
     dt = time.perf_counter() - t0
+    ptxas = {name: ptxas_report(out) for name, out in reports.items()}
+    for name in _build.SOURCES:
+        recs = ptxas.get(name)
+        if not recs or any(r["registers"] is None or r["spill_stores"] is None
+                           for r in recs):
+            fail(f"no ptxas report for {name}.cu: {reports.get(name)!r}")
+        spilled = [r for r in recs if r["spill_stores"] or r["spill_loads"]]
+        if spilled:
+            fail(f"{name}.cu spills registers: {spilled}")
+    for name in _build.SOURCES:
+        kernels._launcher(name)  # load and pick the cluster size
     print(json.dumps({"phase": "build", "sources": _build.SOURCES,
-                      "compiled": built, "seconds": round(dt, 3)}),
+                      "compiled": sorted(reports), "seconds": round(dt, 3),
+                      "ptxas": ptxas, "clusters": kernels.cluster_info}),
           flush=True)
 
 
-def phase_kernels() -> dict:
+def phase_kernels(floor_us: float) -> dict:
     import torch
 
     from better_fastlio2_tpu_torch.ops import kernels
@@ -252,7 +366,12 @@ def phase_kernels() -> dict:
         soa, params = random_soa(n, seed)
         soa, params = soa.cuda(), params.cuda()
         G, mv = kernels.fused_normal_eqs(soa, params)
+        # the same values at an unaligned address: the scalar-load branch
+        G_o, mv_o = kernels.fused_normal_eqs(offset_view(soa), params)
         torch.cuda.synchronize()
+        if not (torch.equal(G_o, G) and torch.equal(mv_o, mv)):
+            fail(f"K1 on an offset view differs from K1 on the aligned "
+                 f"buffer (N={n})")
         checks.append(compare_k1(soa, params, G, mv))
     zero = torch.zeros(kernels.SOA_CH, 4096, device="cuda")
     G0, mv0 = kernels.fused_normal_eqs(zero, params)
@@ -263,22 +382,29 @@ def phase_kernels() -> dict:
     n = 16384  # n_ds at the room bench shapes
     soa, params = random_soa(n, 1)
     soa, params = soa.cuda(), params.cuda()
-    ms = time_ms(lambda: kernels.fused_normal_eqs(soa, params))
-    plain_ms = time_ms(lambda: kernels.fused_normal_eqs_reference(soa,
-                                                                  params))
+    call = functools.partial(kernels.fused_normal_eqs, soa, params)
+    library = k1_library(soa, params)
     # the 13 live channels of the buffer (13-15 are padding the kernel
     # never reads), the pose, and G plus n_moved written
     bytes_moved = 13 * n * 4 + params.numel() * 4 + (64 + 1) * 4
     bound_ms, bound_by = bound(bytes_moved, K1_FLOPS_PER_LANE * n)
-    out = {"phase": "kernels", "checks": checks, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "timed_n": n,
-           "timing_runs": TIMING_RUNS}
+    soa1, params1 = (t.cuda() for t in random_soa(1, 3))
+    out = {"phase": "kernels", "checks": checks, "ms": time_ms(call),
+           "device_us": graph_us(call),
+           # one lane: the fixed cost of the launch, barriers and reduction
+           "device_us_n1": graph_us(functools.partial(
+               kernels.fused_normal_eqs, soa1, params1)),
+           "plain_ms": time_ms(lambda: kernels.fused_normal_eqs_reference(
+               soa, params)),
+           "library_ms": time_ms(library),
+           "launch_floor_us": floor_us,
+           "bound_ms": bound_ms, "bound_by": bound_by, "timed_n": n,
+           "timing_runs": TIMING_RUNS, "graph_calls": GRAPH_CALLS}
     print(json.dumps(out), flush=True)
     return out
 
 
-def phase_k2() -> dict:
+def phase_k2(floor_us: float) -> dict:
     import torch
 
     from better_fastlio2_tpu_torch.ops import kernels
@@ -288,7 +414,13 @@ def phase_k2() -> dict:
         for n, seed in ((16384, 11), (10240 + 37, 12), (1, 13)):
             ins = [t.cuda() for t in random_hth(n, seed)]
             HTH, HTh = kernels.fused_hth(*ins, extrinsic=extrinsic)
+            # the same values at unaligned addresses: the scalar branch
+            H_o, h_o = kernels.fused_hth(*map(offset_view, ins),
+                                         extrinsic=extrinsic)
             torch.cuda.synchronize()
+            if not (torch.equal(H_o, HTH) and torch.equal(h_o, HTh)):
+                fail(f"K2 (extrinsic={extrinsic}) on offset views differs "
+                     f"from K2 on aligned inputs (N={n})")
             checks.append(compare_k2(ins, extrinsic, HTH, HTh))
         ins = [t.cuda() for t in random_hth(4096, 14, sel="none")]
         H0, h0 = kernels.fused_hth(*ins, extrinsic=extrinsic)
@@ -299,30 +431,111 @@ def phase_k2() -> dict:
 
     n = 16384  # n_ds at the room bench shapes
     ins = [t.cuda() for t in random_hth(n, 11)]
+    ins1 = [t.cuda() for t in random_hth(1, 13)]
     timing = {}
     for extrinsic in (False, True):
-        w = ins[5].float()
-        hx = kernels._hth_rows(*ins[:4], w, extrinsic).contiguous()
-        h = (-ins[4] * w).contiguous()
-        ms = time_ms(lambda: kernels.fused_hth(*ins, extrinsic=extrinsic))
-        plain_ms = time_ms(lambda: kernels.fused_hth_reference(
-            *ins, extrinsic=extrinsic))
-        library_ms = time_ms(lambda: (hx.T @ hx, hx.T @ h))
+        call = functools.partial(kernels.fused_hth, *ins,
+                                 extrinsic=extrinsic)
+        library = k2_library(ins, extrinsic)
         bytes_moved = K2_BYTES_PER_LANE[extrinsic] * n + (144 + 12) * 4
         bound_ms, bound_by = bound(bytes_moved,
                                    K2_FLOPS_PER_LANE[extrinsic] * n)
         timing["ext" if extrinsic else "noext"] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": time_ms(call), "device_us": graph_us(call),
+            "device_us_n1": graph_us(functools.partial(
+                kernels.fused_hth, *ins1, extrinsic=extrinsic)),
+            "plain_ms": time_ms(lambda: kernels.fused_hth_reference(
+                *ins, extrinsic=extrinsic)),
+            "library_ms": time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": bytes_moved}
     out = {"phase": "k2", "checks": checks, "timing": timing, "timed_n": n,
-           "timing_runs": TIMING_RUNS,
+           "launch_floor_us": floor_us, "timing_runs": TIMING_RUNS,
+           "graph_calls": GRAPH_CALLS,
            "tf32": torch.backends.cuda.matmul.allow_tf32}
     if out["tf32"]:
         fail("TF32 is on for float32 matmuls: the library yardstick would "
              "not be float32")
     print(json.dumps(out), flush=True)
     return out
+
+
+def k1_library(soa, params):
+    """K1's library yardstick: one matmul r8^T r8 on the prebuilt gated
+    (N, 8) rows (it leaves out the transform, the gate and the count)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.ops import kernels
+
+    r8 = kernels._neq_rows(soa, params).contiguous()
+    return functools.partial(torch.matmul, r8.T, r8)
+
+
+def k2_library(ins, extrinsic: bool):
+    """K2's library yardstick: hx^T hx and hx^T h on the prebuilt (N, 12)
+    rows (it leaves out building them)."""
+    from better_fastlio2_tpu_torch.ops import kernels
+
+    w = ins[5].float()
+    hx = kernels._hth_rows(*ins[:4], w, extrinsic).contiguous()
+    h = (-ins[4] * w).contiguous()
+    return lambda: (hx.T @ hx, hx.T @ h)
+
+
+def phase_library_graph() -> dict:
+    """The library yardsticks' device time per call (graph replay), at the
+    kernels' timed inputs.  Run after the main paths: capturing cuBLAS on
+    a new stream gives that stream a cuBLAS workspace for the life of the
+    process, which would otherwise count in the paths' peak memory."""
+    n = 16384
+    soa, params = (t.cuda() for t in random_soa(n, 1))
+    ins = [t.cuda() for t in random_hth(n, 11)]
+    out = {"phase": "library_graph", "timed_n": n,
+           "k1_library_device_us": graph_us(k1_library(soa, params)),
+           "k2_library_device_us": {
+               "ext" if e else "noext": graph_us(k2_library(ins, e))
+               for e in (False, True)}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_one_launch() -> dict:
+    """One call of each kernel at the main path's N runs exactly one
+    device kernel, and it is that kernel."""
+    import torch
+
+    from better_fastlio2_tpu_torch.ops import kernels
+
+    n = 16384
+    soa, params = (t.cuda() for t in random_soa(n, 1))
+    ins = [t.cuda() for t in random_hth(n, 11)]
+    calls = {
+        "fused_normal_eqs": ("neq_cluster_kernel", functools.partial(
+            kernels.fused_normal_eqs, soa, params)),
+        "fused_hth": ("hth_cluster_kernel", functools.partial(
+            kernels.fused_hth, *ins, extrinsic=False)),
+        "fused_hth_ext": ("hth_cluster_kernel", functools.partial(
+            kernels.fused_hth, *ins, extrinsic=True)),
+    }
+    seen = {}
+    for name, (kernel, fn) in calls.items():
+        names = device_kernels(fn)
+        if len(names) != 1 or kernel not in names[0]:
+            fail(f"{name}: one call ran {len(names)} device kernels "
+                 f"{names}, expected one {kernel}")
+        seen[name] = names[0]
+    out = {"phase": "one_launch", "device_kernels_per_call": seen}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def launch_floor_us() -> float:
+    """The graph-replayed device time of a one-element zero_(): the least
+    any single launch costs on this card."""
+    import torch
+
+    x = torch.ones(1, device="cuda")
+    return graph_us(x.zero_)
 
 
 def room_config():
@@ -513,8 +726,9 @@ def main() -> None:
         fail(f"the port is not importable from here: {e}")
     card = card_line()
     phase_build()
-    k1 = phase_kernels()
-    k2 = phase_k2()
+    floor_us = launch_floor_us()
+    k1 = phase_kernels(floor_us)
+    k2 = phase_k2(floor_us)
     t0 = time.perf_counter()
     groups = make_bench_sequence("room", N_SCANS)
     print(json.dumps({"phase": "sequence", "scans": N_SCANS,
@@ -527,6 +741,8 @@ def main() -> None:
     row_ext = summarize("row_ext", run_main_path(row_config(True), groups,
                                                  "fused_hth"), "fused_hth",
                         0.15, 0.15)
+    lib = phase_library_graph()
+    phase_one_launch()
     k1_err = max(c["max_abs_err"] for c in k1["checks"] + main_out["checks"])
     k2_err = max(c["max_abs_err"] for c in
                  k2["checks"] + row["checks"] + row_ext["checks"])
@@ -540,10 +756,13 @@ def main() -> None:
         "launches": main_out["launches_total"],
         "max_abs_err": k1_err,
         "ms": k1["ms"],
+        "device_us": k1["device_us"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
-        "library_ms": None,
+        "library_ms": k1["library_ms"],
+        "library_device_us": lib["k1_library_device_us"],
+        "launch_floor_us": floor_us,
     }, {
         "name": "fused_hth",
         "route": "cuda",
@@ -552,10 +771,13 @@ def main() -> None:
         "launches": row["launches_total"] + row_ext["launches_total"],
         "max_abs_err": k2_err,
         "ms": k2_t["ms"],
+        "device_us": k2_t["device_us"],
         "plain_ms": k2_t["plain_ms"],
         "bound_ms": k2_t["bound_ms"],
         "bound_by": k2_t["bound_by"],
         "library_ms": k2_t["library_ms"],
+        "library_device_us": lib["k2_library_device_us"]["ext"],
+        "launch_floor_us": floor_us,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

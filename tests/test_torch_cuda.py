@@ -27,13 +27,20 @@ another order), exactly 0 on an all-false mask, bit-identical on a rerun.
 The grouped (sorting) insert on the card is bit-identical to the CPU's
 (integer tables; the points are copied, not summed), and two runs of the
 row pipeline with extrinsic estimation are bit-identical.
+
+Each kernel is one thread-block cluster per call: one device kernel under
+torch.profiler, a call replayed from a CUDA graph bit-identical to the
+eager call, the scalar-load branch (N not a multiple of 4 for K1, a view
+with a storage offset) bit-identical to the 16-byte-load branch on the
+same values, and N = 2^18 (16 trips of the cluster) within the same
+tolerances.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_hth
+from chip_smoke import device_kernels, offset_view, random_hth
 
 from better_fastlio2_tpu_torch.config import (IkdtreeConfig, LIOConfig,
                                               MappingConfig, ShapesConfig)
@@ -262,3 +269,96 @@ def test_cuda_row_pipeline_is_deterministic(cuda):
     assert len(runs[0]) >= 10
     assert tk.fused_hth.launches - k2 >= 2 * (len(runs[0]) - 1)
     np.testing.assert_array_equal(runs[0], runs[1])
+
+
+def _kernel_call(which, n, cuda, seed=1):
+    """(call, inputs) of K1 ("k1") or K2 ("k2", "k2_ext") at N = n on
+    seeded inputs; call(*inputs) returns the kernel's two outputs."""
+    if which == "k1":
+        soa, params = _soa(n, seed)
+        return tk.fused_normal_eqs, [soa.to(cuda), params.to(cuda)]
+    ext = which == "k2_ext"
+    ins = [t.to(cuda) for t in random_hth(n, seed)]
+    return (lambda *a: tk.fused_hth(*a, extrinsic=ext)), ins
+
+
+def _check_plain(which, ins, out):
+    """One kernel result against the plain version, within the tolerances
+    of test_cuda_kernel_matches_plain / test_cuda_fused_hth_matches_plain."""
+    if which == "k1":
+        G_r, mv_r = tk.fused_normal_eqs_reference(*ins)
+        G_tol, slack, _ = tk.fused_normal_eqs_tolerance(*ins)
+        assert bool(((out[0].double() - G_r.double()).abs() <= G_tol).all())
+        assert abs(float(out[1]) - float(mv_r)) <= slack
+        return
+    ext = which == "k2_ext"
+    H_r, h_r = tk.fused_hth_reference(*ins, extrinsic=ext)
+    tol_H, tol_h = tk.fused_hth_tolerance(*ins, extrinsic=ext)
+    assert bool(((out[0].double() - H_r.double()).abs() <= tol_H).all())
+    assert bool(((out[1].double() - h_r.double()).abs() <= tol_h).all())
+    assert torch.equal(out[0], out[0].T)
+
+
+KERNEL_NAMES = {"k1": "neq_cluster_kernel", "k2": "hth_cluster_kernel",
+                "k2_ext": "hth_cluster_kernel"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(KERNEL_NAMES))
+def test_cuda_one_device_kernel_per_call(cuda, which):
+    call, ins = _kernel_call(which, 16384, cuda)
+    names = device_kernels(lambda: call(*ins))
+    assert len(names) == 1 and KERNEL_NAMES[which] in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(KERNEL_NAMES))
+def test_cuda_graph_replay_matches_eager(cuda, which):
+    call, ins = _kernel_call(which, 16384, cuda)
+    eager = call(*ins)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (tk.fused_normal_eqs.launches, tk.fused_hth.launches)
+    with torch.cuda.graph(graph):
+        captured = call(*ins)
+    for t in captured:
+        t.fill_(float("nan"))  # the replay, not the capture, writes them
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+    # one launch captured, counted once
+    after = (tk.fused_normal_eqs.launches, tk.fused_hth.launches)
+    assert sum(after) - sum(before) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(KERNEL_NAMES))
+@pytest.mark.parametrize("n", [16384, 10277, 5, 1])
+def test_cuda_aligned_and_unaligned_loads(cuda, which, n):
+    """The 16-byte-load branch (aligned inputs; for K1 also a row stride
+    that is a multiple of 4) and the scalar branch (N = 10277, 5, 1 for
+    K1's stride; the ragged last lanes; views with a storage offset) give
+    the same bits, within the plain version's tolerance."""
+    call, ins = _kernel_call(which, n, cuda, seed=n)
+    out = call(*ins)
+    views = [offset_view(t) for t in ins]
+    assert all(v.storage_offset() == 1 and v.data_ptr() % 16
+               for v in views)
+    out_o = call(*views)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out_o, out))
+    _check_plain(which, ins, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(KERNEL_NAMES))
+def test_cuda_large_n_strides_inside_the_cluster(cuda, which):
+    call, ins = _kernel_call(which, 1 << 18, cuda, seed=18)
+    out = call(*ins)
+    _check_plain(which, ins, out)
+    again = call(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))

@@ -104,6 +104,25 @@ def test_plain_matches_jax_reference_f64():
     assert float(mv_t) == float(mv_j)
 
 
+def test_neq_rows_give_the_reference_gram_f64():
+    """K1's library yardstick: rows^T rows of _neq_rows's gated (N, 8)
+    rows is the G of the plain version and of the JAX reference, in f64;
+    a gated lane is a zero row."""
+    soa_j, soa_t, params = _both(4096, seed=6)
+    p = torch.as_tensor(params)
+    rows = tk._neq_rows(soa_t.double(), p)
+    assert tuple(rows.shape) == (4096, 8) and rows.dtype == torch.float64
+    G = (rows.T @ rows).numpy()
+    G_t, _ = tk.fused_normal_eqs_reference(soa_t.double(), p)
+    np.testing.assert_allclose(G, G_t.numpy(), rtol=1e-12, atol=1e-9)
+    G_j, _ = jpk.fused_normal_eqs_reference(
+        jnp.asarray(soa_j, jnp.float64), jnp.asarray(params))
+    np.testing.assert_allclose(G, np.asarray(G_j), rtol=1e-12, atol=1e-9)
+    gated = rows[:, 7] == 0
+    assert 0 < int(gated.sum()) < 4096
+    assert int(torch.count_nonzero(rows[gated])) == 0
+
+
 def test_zero_lanes_contribute_nothing():
     _, soa_t, params = _both(2048, seed=5)
     p = torch.as_tensor(params)
@@ -132,6 +151,7 @@ def test_build_targets_sm90a_with_exact_division():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "prec-div" not in flags
+    assert "-Xptxas -v" in flags  # the build reports registers and spills
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
 
 

@@ -20,6 +20,12 @@ reading is ~2e-13 m), and both track ground truth with ATE below 0.10 m
 scans).  One step from a mid-run JAX state of the ``ext`` run, carried
 over with convert.lio_state_from_numpy, reproduces the next state and map.
 An f32 run of ``ext`` tracks ground truth.
+
+tests/test_lio_pipeline.py:125 (stationary) on the port, in f32 on the
+CPU, for the fused single-association solve (K1's path) and the row path
+(K2's): over the same seeded sequence that never moves (seed 5, 2.5 s),
+the last position stays within 0.05 m of where it started (the port
+reads 0.015 m on both paths).
 """
 
 import numpy as np
@@ -165,3 +171,19 @@ def test_row_pipeline_f32_tracks_ground_truth(groups):
     assert len(pos) >= 18
     assert np.all(np.isfinite(np.array(list(pos.values()))))
     assert _ate(pos, groups) < 0.10
+
+
+@pytest.mark.parametrize("path", ["fused", "row"])
+def test_stationary_stays_put(path):
+    groups = jsyn.make_lio_sequence(
+        duration=2.5, scan_rate=10.0, imu_rate=100.0, n_points=3000, seed=5,
+        noise=0.003, traj=jsyn.Trajectory(t_still=1e9))  # never moves
+    cfg = small_cfg(tcfg, "row", "float32")
+    cfg.ikdtree.single_association = path == "fused"
+    tp = LIOPipeline(cfg, device="cpu")
+    outs = [tp.process_scan(*_args(g)) for g in groups]
+    outs = [o for o in outs if o is not None]
+    assert len(outs) == len(groups) - 1 and outs[-1]["n_eff"] > 1000
+    last = outs[-1]
+    drift = np.linalg.norm(last["pos"] - (groups[-1]["gt_pos"] - ORIGIN))
+    assert drift < 0.05, f"stationary drift {drift:.3f} m"

@@ -24,10 +24,10 @@ power limit and one JSON line:
                           launched), device_span_ms (first to last of those
                           on the device timeline) and launches_per_scan;
                           lio.update includes lio.associate and lio.refresh
-  kernels                 for K1 (fused_normal_eqs: neq_stage1 +
-                          neq_stage2) and K2 (fused_hth: hth_stage1 +
-                          hth_stage2): calls per scan and device
-                          microseconds per call
+  kernels                 for K1 (fused_normal_eqs: neq_cluster_kernel)
+                          and K2 (fused_hth: hth_cluster_kernel), one
+                          device kernel per call: calls per scan and
+                          device microseconds per call
   top_kernels             the 15 largest device-time entries by name
   syncs_per_scan          over SYNC_SCANS further scans, unprofiled:
                           `port_reads`, the device->host reads the port
@@ -183,13 +183,13 @@ def main() -> None:
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     kern = {}
-    for name, prefix in (("fused_normal_eqs", "neq_stage"),
-                         ("fused_hth", "hth_stage")):
-        rows = {k: v for k, v in by_name.items() if prefix in k}
-        calls = sum(v[1] for k, v in rows.items() if prefix + "1" in k)
+    for name, kernel in (("fused_normal_eqs", "neq_cluster_kernel"),
+                         ("fused_hth", "hth_cluster_kernel")):
+        rows = [v for k, v in by_name.items() if kernel in k]
+        calls = sum(v[1] for v in rows)
         kern[name] = {"calls_per_scan": calls / n,
-                      "device_us_per_call": (sum(v[0] for v in rows.values())
-                                             / calls if calls else None)}
+                      "device_us_per_call": (sum(v[0] for v in rows) / calls
+                                             if calls else None)}
     print(card, flush=True)
     print(json.dumps({
         "config": args.config, "scans": n, "first_scan": args.warmup,
