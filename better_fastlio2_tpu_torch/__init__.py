@@ -1,10 +1,10 @@
 """better_fastlio2_tpu_torch — the PyTorch/CUDA port of better_fastlio2_tpu.
 
 Runs the per-scan LIO front end (IMU propagation and undistortion, FoV
-crop, voxel downsample, 5-NN association with the iterated ESIKF update,
-map insert) on one NVIDIA GPU.  The ESIKF normal equations run as a
-hand-written CUDA kernel (ops/kernels.fused_normal_eqs); everything else is
-plain PyTorch.  The JAX package beside this one is the reference: module
+crop, voxel downsample, 5-NN or moment-plane association with the
+iterated ESIKF update, map insert) on one NVIDIA GPU.  The ESIKF normal
+equations run as hand-written CUDA kernels (ops/kernels.fused_normal_eqs
+and fused_hth); everything else is plain PyTorch.  The JAX package beside this one is the reference: module
 names and layout mirror it, and the tests hold each module against its JAX
 counterpart.
 

@@ -10,6 +10,9 @@ Array names (one flat dict):
     P                                       (23, 23) covariance
     map_key map_count map_points            the voxel-hash tables
     map_dense                               (Gx, Gy, Gz, 2) or absent/None
+    map_mom, map_dmom                       (C, 10) slot moments and the
+                                            (G, 12) dense moment table;
+                                            absent or None without them
     map_voxel_size                          () float
     cube_lo cube_hi cube_init               the FoV box
     last_acc_w last_gyr_b ekf_inited        IMU carry-over and update gate
@@ -46,14 +49,18 @@ def lio_state_from_numpy(arrays: dict, device=None,
     def flag(name):
         return torch.as_tensor(np.asarray(arrays[name], bool), device=device)
 
-    dense = arrays.get("map_dense")
+    def opt(name, conv):
+        a = arrays.get(name)
+        return None if a is None else conv(name).contiguous()
+
     m = VoxelHashMap(
         key=i32("map_key"),
         count=i32("map_count"),
         points=f("map_points").contiguous(),
-        dense=(torch.as_tensor(np.asarray(dense, np.int32), device=device)
-               .contiguous() if dense is not None else None),
+        dense=opt("map_dense", i32),
         voxel_size=f("map_voxel_size"),
+        mom=opt("map_mom", f),
+        dmom=opt("map_dmom", f),
     )
     return LIOState(
         x=State(*(f(k) for k in STATE_FIELDS)),
@@ -69,7 +76,8 @@ def lio_state_from_numpy(arrays: dict, device=None,
 
 
 def lio_state_to_numpy(ls: LIOState) -> dict:
-    """The inverse of lio_state_from_numpy (copies to the host)."""
+    """The inverse of lio_state_from_numpy (copies to the host); the
+    moment tables are named only when the map has them."""
 
     def a(t):
         return t.detach().cpu().numpy()
@@ -89,4 +97,7 @@ def lio_state_to_numpy(ls: LIOState) -> dict:
         last_gyr_b=a(ls.last_gyr_b),
         ekf_inited=a(ls.ekf_inited),
     )
+    for name, t in (("map_mom", ls.map.mom), ("map_dmom", ls.map.dmom)):
+        if t is not None:
+            out[name] = a(t)
     return out

@@ -1,14 +1,18 @@
 """Point-to-plane measurement model (h_share_model) — batched and masked.
 
-Port of better_fastlio2_tpu/core/measurement.py: 5-NN association over the
-voxel map plus a closed-form plane fit (common_lib.h esti_plane), then one
-of two solve forms.
+Port of better_fastlio2_tpu/core/measurement.py: the association (5-NN
+over the voxel map plus a closed-form plane fit, common_lib.h esti_plane;
+or, with the plane cache, the closed-form plane of the blended moments of
+the query's own voxel and its face neighbours, read from the slot moments
+or the dense moment table), then one of two solve forms.
 
 * The fused form (single association, extrinsic estimation off): the
   association is packed into the (16, N) SoA buffer once per scan and
   every ESIKF pass reduces it to the normal equations with
   ops/kernels.fused_normal_eqs.  A lazy re-association refreshes, at most
   once per scan, the rows whose voxel moved when more than 5% moved.
+  With solve_compact = B the live lanes go into a (16, B) buffer when they
+  fit, and K1 runs over that instead of all N lanes.
 * The row form: every pass gates the rows (robust s-gate) and reduces
   them to HTH / HTh with ops/kernels.fused_hth, without materialising
   them.  The association reruns on every converged pass (reference
@@ -17,11 +21,15 @@ of two solve forms.
 
 The reference's lax.cond sites become host branches: each fused solve
 pass reads n_moved (one device->host read), a lazy-refresh check reads
-the moved count, and a refresh compacts its rows with torch.nonzero.
+the moved count, a refresh compacts its rows with torch.nonzero, and with
+solve_compact each association pass reads its live-lane count (whether
+the compacted buffer holds them all).  The moment-plane association
+itself reads nothing on the host when the map has a dense index.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -29,13 +37,14 @@ import torch
 from torch.profiler import record_function
 
 from ..map import voxel_hash
-from ..ops.kernels import fused_hth, fused_normal_eqs, pack_soa
+from ..ops.kernels import _OK, _VAL, fused_hth, fused_normal_eqs, pack_soa
 from ..utils import so3
-from ..utils.device import nonzero, to_host
+from ..utils.device import nonzero, nonzero_static, to_host
 from .esikf import MeasurementOut
 from .state import State
 
-__all__ = ["plane_fit", "MeasureAux", "make_measure_fn",
+__all__ = ["plane_fit", "plane_from_moments", "neighborhood_moment_sums",
+           "finalize_plane_from_sums", "MeasureAux", "make_measure_fn",
            "transform_to_world"]
 
 NUM_MATCH_POINTS = 5  # NN count (common_lib.h NUM_MATCH_POINTS)
@@ -110,6 +119,161 @@ def plane_fit(neighbors: torch.Tensor, valid: torch.Tensor,
     return n, d, plane_ok
 
 
+@functools.lru_cache(maxsize=None)
+def _iu(device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Index tensors, cached per device (an index list would be uploaded
+    on every call): the six upper-triangle (a, b) pairs of the
+    second-moment channels, and their (3, 3) symmetric layout."""
+    return (torch.tensor([0, 0, 0, 1, 1, 2], device=device),
+            torch.tensor([0, 1, 2, 1, 2, 2], device=device),
+            torch.tensor([[0, 1, 2], [1, 3, 4], [2, 4, 5]], device=device))
+
+
+def _gather_moment_rows(m, nb: torch.Tensor, max_probe: int,
+                        dtype) -> torch.Tensor:
+    """(N, NB, 10) masked corner-relative moment rows of the cells nb
+    (N, NB, 3): from the dense moment table when the map has one (a row
+    counts only where its alias tag matches the cell's), else from the
+    slot moments through the dense index or the probe.  One row gather
+    for all NB cells (the reference gathers one offset at a time; on the
+    GPU every launch costs host time)."""
+    if m.dmom is not None:
+        lin = voxel_hash._dense_linear(m.dense.shape, nb)  # (N, NB)
+        tag = voxel_hash._alias_tag(m.dense.shape, nb).to(dtype)
+        rows = m.dmom[lin]  # (N, NB, DMOM_CH)
+        return torch.where((rows[..., 0] == tag)[..., None],
+                           rows[..., 1:11], 0.0)
+    if m.mom is None:
+        raise ValueError("the plane cache needs a map made with "
+                         "moments=True")
+    N, NB = nb.shape[:2]
+    if m.dense is not None:
+        slots = voxel_hash._dense_lookup(m.dense, nb).to(torch.int64)
+    else:
+        slots = voxel_hash._lookup_slots(m.key, nb.reshape(-1, 3),
+                                         max_probe).reshape(N, NB)
+    return torch.where((slots >= 0)[..., None],
+                       m.mom[torch.clamp(slots, min=0)], 0.0)
+
+
+def _rebase(momj: torch.Tensor, dj: torch.Tensor) -> torch.Tensor:
+    """Moment rows momj (..., 10) rebased by the corner shift dj (..., 3),
+    broadcast against each other:
+    S1' = S1 + n δ,  S2'_ab = S2_ab + δ_a S1_b + δ_b S1_a + n δ_a δ_b,
+    in the reference's order of operations.  The reference's
+    _accumulate_rebased adds one such row set at a time to a running sum;
+    the callers here rebase every cell at once and sum over the cells."""
+    a, b, _ = _iu(momj.device)
+    n_c = momj[..., 0:1]
+    S1 = momj[..., 1:4]
+    S1r = S1 + n_c * dj
+    da, db = dj.index_select(-1, a), dj.index_select(-1, b)
+    S2r = (momj[..., 4:10] + da * S1.index_select(-1, b)
+           + db * S1.index_select(-1, a) + n_c * (da * db))
+    return torch.cat([n_c, S1r, S2r], dim=-1)
+
+
+def _sym3(s6: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric matrices from their (..., 6) upper triangles."""
+    return s6[..., _iu(s6.device)[2]]
+
+
+def neighborhood_moment_sums(m: voxel_hash.VoxelHashMap,
+                             p_world: torch.Tensor, max_probe: int = 16,
+                             cells: str = "face7"
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sums (N, 10), ijk (N, 3)): per-query moments of the blended cell
+    neighbourhood, rebased to the query's own-cell corner and summed.
+    `cells`: "face7" (own + 6 face neighbours, the default), "tangent5"
+    (own cell, then the 4 face neighbours on the two axes tangent to its
+    moment normal; young cells with < 3 points take z as the normal) or
+    "octant4" (own + the 3 face neighbours on the point's side of its
+    cell centre).  The reference measured the two reduced modes diverging
+    end to end; they stay knobs."""
+    dtype = m.points.dtype
+    vs = m.voxel_size
+    ijk = voxel_hash._voxel_of(p_world, vs)
+
+    def gather(nb):
+        return _gather_moment_rows(m, nb, max_probe, dtype)
+
+    if cells == "tangent5":
+        own = gather(ijk[:, None, :])[:, 0]
+        n_c = own[:, 0]
+        S1 = own[:, 1:4]
+        c = S1 / torch.clamp(n_c, min=1.0)[:, None]
+        Cov = _sym3(own[:, 4:10]) - S1[:, :, None] * c[:, None, :]
+        nvec, _ = _sym3_smallest_eig(Cov)
+        dom = torch.where(n_c >= 3, torch.argmax(torch.abs(nvec), dim=-1), 2)
+        axes = torch.arange(3, device=ijk.device)
+        e1 = (axes == ((dom + 1) % 3)[:, None]).to(torch.int32)
+        e2 = (axes == ((dom + 2) % 3)[:, None]).to(torch.int32)
+        steps = torch.stack([e1, -e1, e2, -e2], dim=1)  # (N, 4, 3)
+        rows = gather(ijk[:, None, :] + steps)
+        rebased = _rebase(rows, steps.to(dtype) * vs)
+        return own + torch.sum(rebased, dim=1), ijk
+
+    if cells == "octant4":
+        frac = p_world / vs - ijk.to(dtype)  # in [0, 1)
+        sgn = torch.where(frac >= 0.5, 1, -1).to(torch.int32)
+        steps = sgn[:, :, None] * torch.eye(3, dtype=torch.int32,
+                                            device=ijk.device)
+        rows = gather(torch.cat([ijk[:, None, :], ijk[:, None, :] + steps],
+                                dim=1))
+        rebased = _rebase(rows[:, 1:],
+                                      steps.to(dtype) * vs)
+        return rows[:, 0] + torch.sum(rebased, dim=1), ijk
+
+    if cells != "face7":
+        raise ValueError(f"unknown cells mode {cells!r}")
+    offs = voxel_hash._neighbor_offsets(7, p_world.device)
+    rows = gather(ijk[:, None, :] + offs[None, :, :])  # (N, 7, 10)
+    rebased = _rebase(rows, offs.to(dtype) * vs)
+    return torch.sum(rebased, dim=1), ijk
+
+
+def finalize_plane_from_sums(sums: torch.Tensor, ijk: torch.Tensor,
+                             voxel_size, valid: torch.Tensor,
+                             thresh: float = PLANE_INLIER_THRESH,
+                             min_points: int = NUM_MATCH_POINTS
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Closed-form LSQ plane per query from blended moment sums: the
+    smallest eigenvector of the scatter matrix, through the centroid,
+    d > 0; valid with >= min_points points and an rms point-plane
+    distance sqrt(lam_min / n) <= thresh."""
+    n_tot = sums[:, 0]
+    S1t = sums[:, 1:4]
+    nn = torch.clamp(n_tot, min=1.0)
+    c = S1t / nn[:, None]  # centroid, own-corner frame
+    Cov = _sym3(sums[:, 4:10]) - S1t[:, :, None] * c[:, None, :]
+    nvec, lam_min = _sym3_smallest_eig(Cov)
+    rms = torch.sqrt(torch.clamp(lam_min, min=0.0) / nn)
+    centroid_w = c + ijk.to(sums.dtype) * voxel_size
+    d = -torch.sum(nvec * centroid_w, dim=-1)
+    sgn = torch.where(d < 0, -1.0, 1.0).to(d.dtype)
+    nvec = nvec * sgn[:, None]
+    d = d * sgn
+    plane_ok = valid & (n_tot >= min_points) & (rms <= thresh)
+    return nvec, d, plane_ok
+
+
+def plane_from_moments(m: voxel_hash.VoxelHashMap, p_world: torch.Tensor,
+                       valid: torch.Tensor, max_probe: int = 16,
+                       thresh: float = PLANE_INLIER_THRESH,
+                       min_points: int = NUM_MATCH_POINTS,
+                       cells: str = "face7"
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-point plane from the map's per-voxel moment cache: the
+    union-of-points least-squares plane of the query's neighbourhood in
+    closed form, with no candidate-point gather and no top-k.  Returns
+    (normal (N,3), d (N,), plane_ok (N,)) as plane_fit does."""
+    sums, ijk = neighborhood_moment_sums(m, p_world, max_probe=max_probe,
+                                         cells=cells)
+    return finalize_plane_from_sums(sums, ijk, m.voxel_size, valid,
+                                    thresh=thresh, min_points=min_points)
+
+
 class MeasureAux(NamedTuple):
     """Association cache threaded through the ESIKF passes (the analog of
     Nearest_Points / point_selected_surf, laserMapping.cpp:117,1903-1913).
@@ -122,6 +286,8 @@ class MeasureAux(NamedTuple):
     assoc_ijk: torch.Tensor  # (N, 3) int32 voxel of each point at assoc
     refreshed: bool  # the one lazy refresh pass has run
     soa: torch.Tensor | None = None  # (16, N) fused-solve buffer
+    soa_c: torch.Tensor | None = None  # (16, B) live-lane compacted buffer
+    use_c: bool = False  # soa_c holds every live lane (host bool)
 
 
 def transform_to_world(s: State, pts_body: torch.Tensor) -> torch.Tensor:
@@ -165,9 +331,12 @@ def make_measure_fn(
     n_neighbors: int = 27,
     single_association: bool = False,
     max_live: int = 0,
+    plane_cache: bool = False,
     refresh_budget: int = 4096,
     fused_solve: bool = False,
     early_converge: bool = False,
+    solve_compact: int = 0,
+    assoc_cells: str = "face7",
 ):
     """measure_fn(state, converged, aux) -> MeasurementOut closure over a
     fixed scan and map, for esikf.update_iterated, plus its initial aux.
@@ -178,16 +347,24 @@ def make_measure_fn(
     per scan and then runs the lazy refresh on converged passes: rows whose
     voxel moved since the full pass get fresh planes (at most once per
     scan, when more than 5% of the valid rows moved, at most
-    `refresh_budget` rows).  fused_solve=True with single_association on
+    `refresh_budget` rows).  plane_cache=True associates by the moment
+    plane (plane_from_moments over `assoc_cells`; the map must carry
+    moments or a dense moment table) instead of 5-NN.
+    fused_solve=True with single_association on
     and extrinsic_est off selects the fused form of the module docstring
     (the one place that rule is decided); early_converge lets it exit on
-    the first converged pass when under 5% of the rows changed voxel.
+    the first converged pass when under 5% of the rows changed voxel, and
+    solve_compact = B > 0 runs its solve passes over the live lanes
+    compacted into (16, B) when they fit.
     Every other combination takes the row form: its normal equations come
     from ops/kernels.fused_hth, K = 12 columns with extrinsic_est, else 6.
     """
 
     def search_rows(p_w, rows_valid):
         """Association of a row set -> (n, d, ok)."""
+        if plane_cache:
+            return plane_from_moments(m, p_w, rows_valid,
+                                      max_probe=max_probe, cells=assoc_cells)
         nb, d2, ok = voxel_hash.knn(
             m, p_w, k=NUM_MATCH_POINTS, max_probe=max_probe,
             n_neighbors=n_neighbors, max_live=max_live)
@@ -200,7 +377,8 @@ def make_measure_fn(
     if fused_solve and single_association and not extrinsic_est:
         return _make_fused_measure(m, pts_body, pts_valid, search_rows,
                                    refresh_budget,
-                                   early_converge=early_converge)
+                                   early_converge=early_converge,
+                                   solve_compact=solve_compact)
     return _make_row_measure(m, pts_body, pts_valid, search_rows,
                              extrinsic_est, single_association,
                              refresh_budget)
@@ -281,14 +459,40 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
 
 
 def _make_fused_measure(m, pts_body, pts_valid, search_rows,
-                        refresh_budget: int, early_converge: bool = False):
-    """The fused-solve measure closure (see make_measure_fn)."""
+                        refresh_budget: int, early_converge: bool = False,
+                        solve_compact: int = 0):
+    """The fused-solve measure closure (see make_measure_fn).
+
+    solve_compact = B (0 < B < N): lanes with fit_ok = 0 or valid = 0 add
+    exactly zero to the Gram in every pass, so when an association pass
+    leaves at most B live lanes they are gathered, ascending, into a
+    zero-filled (16, B) buffer (`soa_c`, `use_c`; one host read of the
+    live count per association pass) and every solve pass runs K1 over
+    it; otherwise the full-width buffer.  As in the reference, n_moved
+    then counts only live lanes, and a dead lane comes back only through
+    the refresh."""
     N = pts_body.shape[0]
     dtype = pts_body.dtype
     invb = 0.9 / torch.sqrt(torch.clamp(
         torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
     vs = m.voxel_size.to(dtype)
     n_val_scan = float(to_host(torch.sum(pts_valid.to(dtype))))
+    B = int(solve_compact) if 0 < int(solve_compact) < N else 0
+
+    def with_compact(aux):
+        """aux with soa_c / use_c derived from aux.soa."""
+        if not B:
+            return aux
+        live = (aux.soa[_OK] > 0) & (aux.soa[_VAL] > 0)
+        if to_host(torch.sum(live.to(torch.int32))) > B:
+            return aux._replace(soa_c=None, use_c=False)
+        idx = nonzero_static(live, B, N)
+        cols = aux.soa[:, torch.clamp(idx, max=N - 1)]
+        return aux._replace(soa_c=torch.where((idx < N)[None, :], cols, 0.0),
+                            use_c=True)
+
+    def solve(aux, params):
+        return fused_normal_eqs(aux.soa_c if aux.use_c else aux.soa, params)
 
     def build_aux(s, aux):
         p_world = transform_to_world(s, pts_body)
@@ -296,9 +500,9 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
         n, d, ok = search_rows(p_world, pts_valid)
         p_imu = so3.quat_rotate(s.off_r, pts_body) + s.off_t
         soa = pack_soa(p_imu, n, d, invb, ok, ijk, pts_valid)
-        return aux._replace(normal=n, d=d, fit_ok=ok, searched=True,
-                            assoc_ijk=ijk, refreshed=False,
-                            soa=soa.contiguous())
+        return with_compact(aux._replace(
+            normal=n, d=d, fit_ok=ok, searched=True, assoc_ijk=ijk,
+            refreshed=False, soa=soa.contiguous()))
 
     def measure(s: State, converged: bool, aux: MeasureAux) -> MeasurementOut:
         if not aux.searched:
@@ -310,7 +514,7 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
             so3.quat_to_matrix(s.rot).reshape(-1), s.pos, vs[None],
             torch.zeros(3, dtype=dtype, device=vs.device),
         ]).to(torch.float32)
-        G, n_moved_t = fused_normal_eqs(aux.soa, params)
+        G, n_moved_t = solve(aux, params)
         n_moved = to_host(n_moved_t)
 
         if (refresh_budget > 0 and converged and not aux.refreshed
@@ -324,14 +528,16 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
                                 ijk_now[sel], pts_valid[sel])
                 soa = aux.soa.clone()
                 soa[:, sel] = cols
-                return aux._replace(soa=soa)
+                # a refreshed row may gain or lose fit_ok: re-derive the
+                # compacted buffer from the patched full one
+                return with_compact(aux._replace(soa=soa))
 
             with record_function("lio.refresh"):
                 aux = _budgeted_refresh(aux, p_world, ijk_now, pts_valid,
                                         search_rows, refresh_budget,
                                         extra_update=update_soa)
             # re-solve over the refreshed association
-            G, n_moved_t = fused_normal_eqs(aux.soa, params)
+            G, n_moved_t = solve(aux, params)
             n_moved = to_host(n_moved_t)
 
         # re-association would change nothing only when the moved fraction

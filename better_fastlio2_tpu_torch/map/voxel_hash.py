@@ -8,31 +8,45 @@ open-addressing table of voxel buckets,
     points: (C, B, 3) float  sentinel-filled (1e9)
     dense:  (Gx, Gy, Gz, 2) int32 or None — torus lookup index of
             (packed key, slot) rows, verified against the key at lookup
+    mom:    (C, 10) float or None — per-slot corner-relative point moments
+            [n, Σq, Σqqᵀ upper triangle] of the plane cache
+    dmom:   (G, DMOM_CH) float or None — the dense moment table of the
+            steady program: [alias tag, n, Σq, Σqqᵀ, pad] at torus address
 
 with the same slot placement as the reference (bit-exact hash), the same
 deterministic scatter-min claim protocol, 5-NN over the voxel
-neighbourhood and the moving-box crop.
+neighbourhood, the moving-box crop, the moment accumulation (full scatter
+with the mom_cap rescale, or freeze-at-cap under a budget), the insert
+budgets and the dense-moment steady insert with torus-wrap forgetting.
 
 Translation notes:
 * `_hash` runs its uint32 wrap-around multiplies and logical shifts in
   int64 masked to 32 bits (torch has no full uint32 arithmetic).
 * `mode="drop"` scatters become scatters whose inactive lanes add zero
-  (integer adds) or write the value the target ends with anyway.
+  (integer adds), write the value the target ends with anyway, or land in
+  a sink row past the end of a buffer allocated here and cut off.
 * Where the reference sets rows through possibly-duplicate indices
   (the bucket append and the dense-index refresh: two downsampled
   centroids of one batch can fall into one world voxel after the
   body->world transform), XLA applies the updates in order, so the last
   one wins.  CUDA's index_put_ picks an undefined winner, so these sets
   resolve the last writer explicitly (`_set_rows_last`).
+* The float scatter-adds (`mom.at[slot].add`, `dmom.at[dst].add`) can
+  see one target row twice for the same reason; a float index_add_ would
+  run on CUDA atomics and change the sums' last bits from run to run.
+  `_add_rows` sorts the rows by target, sums each target's rows in order
+  (segment_reduce) and writes each target once: the same bits every run.
+* `jnp.nonzero(mask, size=K, fill_value=n)` becomes
+  utils.device.nonzero_static: same result, no host read.
 * The grouped insert's `lexsort` becomes stable sorts from the least
   significant key up, and its `associative_scan(maximum)` group head a
   `torch.cummax`.
 * The claim loop and the probe loop are host loops: one device->host read
   per round (utils.device.to_host counts them).
 
-Only what the per-scan front end runs is here: the insert, grouped or
-pre-grouped (one row per voxel — the downsample leaf equals the map
-voxel), with or without the dense index, without budgets or moments.
+Not ported yet: `rebuild`, `tombstone_fraction`, `knn_sortjoin` and the
+insert's `claim_only` (the map rebuild), and the SPMD arguments of
+`insert_dense_moments` (multi-device).
 """
 
 from __future__ import annotations
@@ -43,10 +57,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.device import to_host
+from ..utils.device import nonzero_static, to_host
 
-__all__ = ["VoxelHashMap", "make_map", "insert", "knn", "crop_outside_box",
-           "num_voxels"]
+__all__ = ["VoxelHashMap", "make_map", "insert", "insert_dense_moments",
+           "build_dense_moments", "knn", "crop_outside_box", "num_voxels",
+           "DMOM_CH"]
+
+DMOM_CH = 12  # dense-moment row channels (see the module docstring)
 
 _INT_MAX = 2147483647
 _KEY_EMPTY = 0
@@ -65,6 +82,8 @@ class VoxelHashMap(NamedTuple):
     points: torch.Tensor  # (C, B, 3) float
     dense: torch.Tensor | None  # (Gx, Gy, Gz, 2) int32 or None
     voxel_size: torch.Tensor  # () float
+    mom: torch.Tensor | None = None  # (C, 10) float or None
+    dmom: torch.Tensor | None = None  # (G, DMOM_CH) float or None
 
     @property
     def capacity(self) -> int:
@@ -77,9 +96,12 @@ class VoxelHashMap(NamedTuple):
 
 def make_map(capacity_log2: int = 19, bucket: int = 8,
              voxel_size: float = 0.5, dtype=torch.float32, device=None,
-             dense_log2: tuple[int, int, int] | None = None) -> VoxelHashMap:
+             dense_log2: tuple[int, int, int] | None = None,
+             moments: bool = False) -> VoxelHashMap:
     """Allocate an empty map of 2**capacity_log2 slots; dense_log2 adds
-    the torus lookup index of 2**lx x 2**ly x 2**lz cells."""
+    the torus lookup index of 2**lx x 2**ly x 2**lz cells, moments the
+    (C, 10) moment accumulator of the plane cache.  The dense moment
+    table is attached later (build_dense_moments)."""
     C = 1 << capacity_log2
     dense = (torch.zeros((1 << dense_log2[0], 1 << dense_log2[1],
                           1 << dense_log2[2], 2), dtype=torch.int32,
@@ -92,6 +114,8 @@ def make_map(capacity_log2: int = 19, bucket: int = 8,
                           device=device),
         dense=dense,
         voxel_size=torch.tensor(voxel_size, dtype=dtype, device=device),
+        mom=(torch.zeros((C, 10), dtype=dtype, device=device)
+             if moments else None),
     )
 
 
@@ -193,6 +217,39 @@ def _set_rows_last(target: torch.Tensor, idx: torch.Tensor,
     target.index_put_((tgt,), val)
 
 
+def _add_rows(target: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+              active: torch.Tensor) -> None:
+    """In place: target[idx[r]] += rows[r] for active r — the reference's
+    `.at[idx].add(rows, mode="drop")` — with the same bits on every run.
+
+    The rows are sorted by target (stable), each target's rows are summed
+    in index order by segment_reduce (one segment per distinct target,
+    the inactive rows last), and each target is written once.  Lanes
+    without a segment write segment 0's value to segment 0's row, so no
+    two lanes write different values to one row."""
+    n, T = idx.shape[0], target.shape[0]
+    dev = idx.device
+    key = torch.where(active, idx.to(torch.int64), T)
+    ks, order = torch.sort(key, stable=True)
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = ks[1:] != ks[:-1]
+    seg = torch.cumsum(head.to(torch.int64), dim=0) - 1
+    lengths = torch.zeros(n, dtype=torch.int64, device=dev)
+    lengths.index_add_(0, seg, torch.ones_like(seg))
+    sums = torch.segment_reduce(rows[order], "sum", lengths=lengths,
+                                unsafe=True)
+    # each segment's target (all its rows write the same value); segments
+    # past the last one, and the inactive rows' segment, keep T
+    seg_dst = torch.full((n,), T, dtype=torch.int64, device=dev)
+    seg_dst.index_put_((seg,), ks)
+    real = seg_dst < T
+    safe = torch.where(real, seg_dst, torch.clamp(seg_dst[:1], max=T - 1))
+    old = target[safe]
+    upd = torch.where(real[:, None], old + sums, old)
+    val = torch.where(real[:, None], upd, upd[:1])
+    target.index_put_((safe,), val)
+
+
 def _lexsort(keys) -> torch.Tensor:
     """The permutation jnp.lexsort(keys) gives: the last key is primary,
     ties keep the input order (stable sorts, least significant key
@@ -203,8 +260,22 @@ def _lexsort(keys) -> torch.Tensor:
     return order
 
 
+def _mom_rows(q: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """(n, 10) moment rows [1, q, qqᵀ upper triangle] * gate of
+    corner-relative points q."""
+    one = gate.to(q.dtype)[:, None]
+    return torch.cat([
+        one, q * one,
+        torch.stack([q[:, 0] * q[:, 0], q[:, 0] * q[:, 1], q[:, 0] * q[:, 2],
+                     q[:, 1] * q[:, 1], q[:, 1] * q[:, 2], q[:, 2] * q[:, 2]],
+                    dim=-1) * one], dim=-1)
+
+
 def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
-           max_probe: int = 16, pre_grouped: bool = False) -> VoxelHashMap:
+           max_probe: int = 16, pre_grouped: bool = False,
+           claim_budget: int = 0, dense_budget: int = 0,
+           moments_only: bool = False, mom_cap: int = 0,
+           mom_budget: int = 0) -> VoxelHashMap:
     """Insert a batch of world-frame points (`valid` masks rows); updates
     the map's tensors IN PLACE (the reference donates its map buffers the
     same way) and returns the map.
@@ -219,6 +290,17 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
     head, as the downsample output at the map's leaf size is, and skips
     the sort.  With a dense index, voxels whose row is current resolve
     through one gather and only the misses probe.
+
+    The steady program's options (the reference's insert docstring):
+    claim_budget / dense_budget > 0 (pre_grouped, dense-index maps)
+    compact the claim loop and the dense-index refresh to the first
+    `budget` dense-miss rows in ascending order; the rest retry on the
+    next scan.  moments_only skips the bucket appends.  With moment
+    storage every resolved row adds its corner-relative moment row (also
+    rows a full bucket drops); mom_cap > 0 rescales rows past mom_cap
+    points back to that weight, or, with mom_budget > 0 and pre_grouped,
+    freezes them at the cap and scatters at most mom_budget unsaturated
+    rows.
     """
     C, B = m.capacity, m.bucket
     hmask = C - 1
@@ -252,65 +334,259 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
         dslot = _dense_lookup(m.dense, ijk_s).to(torch.int64)
         live_ok = key_arr[torch.clamp(dslot, min=0)] == key_target
         dslot = torch.where(live_ok, dslot, -1)
-        slot = torch.where(is_head, dslot, -1)
-        unresolved = is_head & (dslot < 0)
+        slot0 = torch.where(is_head, dslot, -1)
+        unresolved0 = is_head & (dslot < 0)
     else:
-        slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        unresolved = is_head.clone()
+        slot0 = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        unresolved0 = is_head
 
-    # claim loop over the group heads: one probe round per pass, one host
-    # read per round
-    probe = torch.zeros(n, dtype=torch.int64, device=dev)
+    use_claim_budget = claim_budget > 0 and pre_grouped and m.dense is not None
+    if use_claim_budget:
+        # the claim loop runs over the first claim_budget dense misses
+        nb = claim_budget
+        sel = nonzero_static(unresolved0, nb, n)
+        act = sel < n
+        safe_sel = torch.clamp(sel, max=n - 1)
+        h_c, key_c = h_s[safe_sel], key_target[safe_sel]
+        idx_c = torch.arange(nb, dtype=torch.int64, device=dev)
+        slot = torch.full((nb,), -1, dtype=torch.int64, device=dev)
+        unresolved = act
+    else:
+        h_c, key_c, idx_c = h_s, key_target, idx
+        slot, unresolved = slot0, unresolved0
+
+    # claim loop: one probe round per pass, one host read per round
+    probe = torch.zeros_like(idx_c)
     active = to_host(torch.any(unresolved))
     while active:
-        cand = (h_s + probe) & hmask
+        cand = (h_c + probe) & hmask
         kcand = key_arr[cand]
-        found = unresolved & (kcand == key_target)
+        found = unresolved & (kcand == key_c)
         slot = torch.where(found, cand, slot)
         unresolved = unresolved & ~found
         # claim empty slots (tombstones are never reclaimed)
         tryc = unresolved & (kcand == _KEY_EMPTY)
         claim = torch.full((C,), _INT_MAX, dtype=torch.int64, device=dev)
         claim.scatter_reduce_(0, torch.where(tryc, cand, 0),
-                              torch.where(tryc, idx, _INT_MAX), "amin",
+                              torch.where(tryc, idx_c, _INT_MAX), "amin",
                               include_self=True)
-        won = tryc & (claim[cand] == idx)
+        won = tryc & (claim[cand] == idx_c)
         # winners are unique per slot and claimed slots hold key 0, so an
         # add is a set; losers add 0 to slot 0.  Integer index_add_ is
         # exact in any order; index_put_(accumulate=True) would take CUDA's
         # sort-based path (~1.4 ms a call on an H100 at the room shapes)
         key_arr.index_add_(0, torch.where(won, cand, 0),
-                           torch.where(won, key_target, 0))
+                           torch.where(won, key_c, 0))
         slot = torch.where(won, cand, slot)
         unresolved = unresolved & ~won
         probe = torch.where(unresolved, probe + 1, probe)
         unresolved = unresolved & (probe < max_probe)
         active = to_host(torch.any(unresolved))
-    head_slot = slot
+    if use_claim_budget:
+        # the compacted results over the dense-hit baseline (the selected
+        # rows are distinct; unselected lanes land in the sink row n)
+        head_slot = torch.cat([slot0, slot0.new_full((1,), -1)])
+        head_slot.index_put_((torch.where(act, sel, n),), slot)
+        head_slot = head_slot[:n]
+    else:
+        head_slot = slot
     # every row inherits its group head's slot (-1 if the head failed)
     slot_all = head_slot if group_head is None else head_slot[group_head]
     slot_all = torch.where(valid_s, slot_all, -1)
 
     # append into the buckets at base + rank
-    dest = m.count[torch.clamp(slot_all, min=0)].to(torch.int64) + rank
-    ok = (slot_all >= 0) & (dest < B) & valid_s
-    flat_pts = m.points.view(C * B, 3)
-    _set_rows_last(flat_pts, slot_all * B + dest, pts_s, ok)
-    m.count.index_add_(0, torch.where(ok, slot_all, 0), ok.to(torch.int32))
-    torch.clamp(m.count, max=B, out=m.count)
+    if not moments_only:
+        dest = m.count[torch.clamp(slot_all, min=0)].to(torch.int64) + rank
+        ok = (slot_all >= 0) & (dest < B) & valid_s
+        flat_pts = m.points.view(C * B, 3)
+        _set_rows_last(flat_pts, slot_all * B + dest, pts_s, ok)
+        m.count.index_add_(0, torch.where(ok, slot_all, 0),
+                           ok.to(torch.int32))
+        torch.clamp(m.count, max=B, out=m.count)
+    elif m.mom is None:
+        raise ValueError("a moments_only insert needs moment storage")
+
+    # moment accumulation: EVERY resolved row contributes (also rows a
+    # full bucket dropped), in voxel-corner-relative coordinates
+    if m.mom is not None:
+        mok = (slot_all >= 0) & valid_s
+        dt = pts_s.dtype
+        if mom_cap > 0 and mom_budget > 0 and pre_grouped:
+            # freeze-at-cap: only unsaturated voxels accumulate, the
+            # first mom_budget of them
+            n_seen = m.mom[torch.clamp(slot_all, min=0), 0]
+            selm = nonzero_static(mok & (n_seen < mom_cap), mom_budget, n)
+            actm = selm < n
+            sm = torch.clamp(selm, max=n - 1)
+            q_c = pts_s[sm] - ijk_s[sm].to(dt) * m.voxel_size
+            _add_rows(m.mom, slot_all[sm], _mom_rows(q_c, actm), actm)
+        else:
+            q = pts_s - ijk_s.to(dt) * m.voxel_size
+            _add_rows(m.mom, slot_all, _mom_rows(q, mok), mok)
+            if mom_cap > 0:
+                scale = torch.clamp(
+                    mom_cap / torch.clamp(m.mom[:, 0], min=1.0), max=1.0)
+                m.mom.mul_(scale[:, None])
 
     # refresh the dense row of every head that resolved a slot.  Distinct
     # voxels of one batch reach distinct rows only while the torus spans
     # the batch extent — at (8,8,7) x 0.5 m that is 128 x 128 x 64 m
     # against det_range 60 — and two rows of one voxel write the same
     # (key, slot) pair; the last-writer rule covers both cases exactly.
+    # The budgeted refreshes add new - old to the rows they select (the
+    # reference's scatter-add form; integer adds, exact in any order).
     if m.dense is not None:
         Gx, Gy, Gz, _ = m.dense.shape
         flat = m.dense.view(Gx * Gy * Gz, 2)
-        row = torch.stack([key_target, head_slot.to(torch.int32)], dim=-1)
-        _set_rows_last(flat, _dense_linear(m.dense.shape, ijk_s), row,
-                       is_head & (head_slot >= 0))
+        lin = _dense_linear(m.dense.shape, ijk_s)
+
+        def delta_set(lin_b, row_b, ok_rows):
+            lin_b = torch.where(ok_rows, lin_b, 0)
+            delta = torch.where(ok_rows[:, None], row_b - flat[lin_b], 0)
+            flat.index_add_(0, lin_b, delta)
+
+        if use_claim_budget and dense_budget > 0:
+            # the rows needing a dense write are exactly the claim-loop
+            # rows that resolved a slot
+            ok_d = act & (slot >= 0)
+            delta_set(lin[safe_sel],
+                      torch.stack([key_c, slot.to(torch.int32)], dim=-1),
+                      ok_d)
+        elif dense_budget > 0 and pre_grouped:
+            need = unresolved0 & (head_slot >= 0)
+            seld = nonzero_static(need, dense_budget, n)
+            sd = torch.clamp(seld, max=n - 1)
+            delta_set(lin[sd],
+                      torch.stack([key_target[sd],
+                                   head_slot[sd].to(torch.int32)], dim=-1),
+                      seld < n)
+        else:
+            row = torch.stack([key_target, head_slot.to(torch.int32)],
+                              dim=-1)
+            _set_rows_last(flat, lin, row, is_head & (head_slot >= 0))
     return m
+
+
+def _alias_tag(dense_shape, ijk: torch.Tensor) -> torch.Tensor:
+    """Packed-key bits ABOVE the torus address, per axis: with the torus
+    address they give the full packed key, so an equal tag at the same
+    address means the same voxel (within the 1024-cell key period).  The
+    shifts are arithmetic on int32, as in the reference."""
+    Gx, Gy, Gz = dense_shape[:3]
+    lx, ly, lz = (int(Gx).bit_length() - 1, int(Gy).bit_length() - 1,
+                  int(Gz).bit_length() - 1)
+    bx, by = 10 - lx, 10 - ly
+    tx = (ijk[..., 0] >> lx) & ((1 << bx) - 1)
+    ty = (ijk[..., 1] >> ly) & ((1 << by) - 1)
+    tz = (ijk[..., 2] >> lz) & ((1 << (10 - lz)) - 1)
+    return tx | (ty << bx) | (tz << (bx + by))
+
+
+def _kill_replace_dups(dst: torch.Tensor, own: torch.Tensor,
+                       delta: torch.Tensor) -> torch.Tensor:
+    """Zero every replace row (own False) after the first of its target
+    cell: accumulate rows add up, but a second replace row would subtract
+    the old row twice.  Duplicates are rare but real: the downsample
+    de-duplicates in the body frame and the body->world transform can put
+    two rows into one world voxel.  Stable sort by cell; the kill mask
+    goes back through the inverse permutation."""
+    order = torch.sort(dst, stable=True).indices
+    ds = dst[order]
+    dup = torch.zeros_like(own)
+    dup[1:] = ds[1:] == ds[:-1]
+    kill = torch.empty_like(own)
+    kill[order] = dup & ~own[order]
+    return torch.where(kill[:, None], 0.0, delta)
+
+
+def insert_dense_moments(dmom: torch.Tensor, dense_shape: tuple,
+                         voxel_size: torch.Tensor, pts_world: torch.Tensor,
+                         valid: torch.Tensor, mom_cap: int, mom_budget: int,
+                         spmd_axis=None, spmd_ndev: int = 1,
+                         spmd_pre_sliced: bool = False,
+                         spmd_dedupe: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Steady-state moment insert straight into the dense torus table,
+    IN PLACE; returns (dmom, n_new_cells) with n_new a device scalar.
+
+    Each valid row accumulates its corner-relative moment row into its
+    voxel's torus cell with freeze-at-cap semantics (mom_cap <= 0:
+    unbounded), the first mom_budget rows that need it in ascending
+    order.  A cell whose alias tag differs from the incoming voxel's holds
+    geometry one torus period away: its row is replaced (a delta of
+    new - old), which stands in for the FoV box crop.  The batch must be
+    pre-grouped (<= 1 row per voxel) and the torus must span its extent;
+    same-voxel duplicates after the body->world transform keep only their
+    first replace row.  The SPMD arguments belong to the multi-device
+    slice of the port and raise here."""
+    if (spmd_axis is not None or spmd_ndev != 1 or spmd_pre_sliced
+            or spmd_dedupe):
+        raise NotImplementedError(
+            "insert_dense_moments' SPMD mode is not ported yet: it comes "
+            "with the multi-device slice (torch.distributed)")
+    n = pts_world.shape[0]
+    G = dmom.shape[0]
+    dt = dmom.dtype
+    ijk = _voxel_of(pts_world, voxel_size)
+    lin = _dense_linear(dense_shape, ijk)
+    tag = _alias_tag(dense_shape, ijk).to(dt)
+
+    hdr = dmom[lin, 0:2]  # (n, 2): [tag, count]
+    own = (hdr[:, 0] == tag) & valid
+    n_seen = torch.where(own, hdr[:, 1], 0.0)
+    cap = float(mom_cap) if mom_cap > 0 else float("inf")
+    need = valid & (n_seen < cap)
+
+    sel = nonzero_static(need, mom_budget, n)
+    act = sel < n
+    sm = torch.clamp(sel, max=n - 1)
+    lin_s = lin[sm]
+    old = dmom[lin_s]  # (budget, DMOM_CH)
+    q = pts_world[sm] - ijk[sm].to(dt) * voxel_size
+    rows = _mom_rows(q, act)
+    contrib = torch.cat([tag[sm, None], rows, rows.new_zeros(sel.shape[0], 1)],
+                        dim=-1)
+    own_s = own[sm]
+    # own cell: pure accumulate (tag delta 0); stale or new cell: replace
+    add_own = torch.cat([torch.zeros_like(contrib[:, :1]), contrib[:, 1:]],
+                        dim=-1)
+    delta = torch.where(own_s[:, None], add_own, contrib - old)
+    delta = delta * act.to(dt)[:, None]
+    dst = torch.where(act, lin_s, G)
+    n_new = torch.sum((act & ~own_s).to(torch.int32))
+    delta = _kill_replace_dups(dst, own_s & act, delta)
+    _add_rows(dmom, dst, delta, act)
+    return dmom, n_new
+
+
+def build_dense_moments(m: VoxelHashMap, center) -> torch.Tensor:
+    """The (G, DMOM_CH) dense moment table from the slot moments — the
+    warmup->steady handoff, once.  Voxel coords come from the packed keys
+    unwrapped around `center` (the FoV-cube centre, a (3,) tensor or
+    array), so point-less moments_only voxels transfer too; only voxels
+    within the torus half-span minus one cell of it per axis transfer, so
+    no two land in one cell."""
+    if m.mom is None or m.dense is None:
+        raise ValueError("build_dense_moments needs moments and a dense "
+                         "index")
+    dense_shape = m.dense.shape
+    G = dense_shape[0] * dense_shape[1] * dense_shape[2]
+    dt = m.points.dtype
+    live = ((m.key & _LIVE_BIT) != 0) & (m.mom[:, 0] > 0)
+    center_ijk = _voxel_of(torch.as_tensor(center, dtype=dt,
+                                           device=m.key.device), m.voxel_size)
+    coords = _unpack_rel(m.key, center_ijk)
+    for ax in range(3):
+        hw_cells = (dense_shape[ax] >> 1) - 1
+        live = live & (torch.abs(coords[:, ax] - center_ijk[ax]) <= hw_cells)
+    lin = _dense_linear(dense_shape, coords)
+    tag = _alias_tag(dense_shape, coords).to(dt)
+    rows = torch.cat([tag[:, None], m.mom, m.mom.new_zeros(m.capacity, 1)],
+                     dim=-1)
+    dmom = torch.zeros((G, DMOM_CH), dtype=dt, device=m.key.device)
+    # the target rows start at zero and live cells are distinct: add = set
+    _add_rows(dmom, lin, torch.where(live[:, None], rows, 0.0), live)
+    return dmom
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,14 +662,17 @@ def knn(m: VoxelHashMap, queries: torch.Tensor, k: int = 5,
 
 
 def crop_outside_box(m: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor,
-                     enabled: torch.Tensor | None = None) -> VoxelHashMap:
+                     enabled: torch.Tensor | None = None,
+                     skip_points: bool = False) -> VoxelHashMap:
     """Tombstone every voxel whose centre lies outside [lo, hi) — the
     moving-FoV-cube box deletion (laserMapping.cpp:1136-1200).  Voxel
     coords come from the packed keys, unwrapped around the box centre.
     `enabled` (device bool) gates the kill mask without a host read.
-    Killed slots get sentinel points, so a stale dense row that matches a
-    re-entering voxel resolves to a slot with no usable points; the dense
-    index itself is left as is (insert re-verifies liveness).
+    Killed slots get zero moments and sentinel points, so a stale dense
+    row that matches a re-entering voxel resolves to a slot with no usable
+    points; the dense index itself is left as is (insert re-verifies
+    liveness).  skip_points=True leaves the points untouched (the steady
+    plane-cache program never reads them).
     Returns a new map (the reference's crop is out of place too)."""
     live = (m.key & _LIVE_BIT) != 0
     center_ijk = _voxel_of((lo + hi) * 0.5, m.voxel_size)
@@ -406,5 +685,8 @@ def crop_outside_box(m: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor,
     return m._replace(
         key=torch.where(kill, _KEY_TOMB, m.key),
         count=torch.where(kill, 0, m.count),
-        points=torch.where(kill[:, None, None], _SENTINEL, m.points),
+        points=(m.points if skip_points else
+                torch.where(kill[:, None, None], _SENTINEL, m.points)),
+        mom=(torch.where(kill[:, None], 0.0, m.mom)
+             if m.mom is not None else None),
     )

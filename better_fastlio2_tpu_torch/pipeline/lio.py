@@ -15,12 +15,14 @@ branched on the device (counted by utils.device.host_syncs): the update
 gate, one or two per ESIKF pass, one per insert claim round, and the one
 flat 32-float info readback per scan.
 
-Ported: the fused single-association solve (slice 1) and the ESIKF row
-path (slice 2: reference re-association or single association, with or
-without extrinsic estimation), over the 5-NN association and the voxel-hash
-insert, grouped or pre-grouped.  Everything else (the plane cache and the
-rest of the bench configuration, the map rebuild, feature extraction)
-raises NotImplementedError naming the slice that brings it.
+Ported: the fused single-association solve (slice 1), the ESIKF row path
+(slice 2: reference re-association or single association, with or without
+extrinsic estimation) over the 5-NN association and the voxel-hash insert,
+grouped or pre-grouped, and the bench configuration (slice 3): the plane
+cache with its 5-NN warmup program, the budgeted moment inserts, the
+dense-moment steady program (mom_dense) and the compacted solve.  The map
+rebuild, feature extraction, the windowed and pipelined modes and mesh
+mode raise NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..config import LIOConfig
+from ..config import LIOConfig, derive_map_dense_log2
 from ..core import esikf, imu, measurement
 from ..core.state import State
 from ..map import voxel_hash
@@ -64,14 +66,8 @@ class LIOState(NamedTuple):
 def check_config(cfg: LIOConfig) -> None:
     """Raise NotImplementedError for every option the port does not carry
     yet, naming the later slice that brings it."""
-    kd, sh = cfg.ikdtree, cfg.shapes
-    bench = "the bench-configuration slice (plane cache, mom_dense)"
+    kd = cfg.ikdtree
     checks = [
-        (kd.plane_cache, "plane_cache", bench),
-        (kd.mom_dense, "mom_dense", bench),
-        (sh.solve_compact > 0, "shapes.solve_compact", bench),
-        (sh.insert_claim_budget > 0 or sh.insert_dense_budget > 0
-         or sh.insert_mom_budget > 0, "the insert budgets", bench),
         (kd.recontruct_kdtree, "ikdtree.recontruct_kdtree",
          "a later slice (map rebuild)"),
         (cfg.preprocess.feature_extract_enable,
@@ -85,11 +81,15 @@ def check_config(cfg: LIOConfig) -> None:
 
 
 def _fov_segment(ls: LIOState, pos_lid: torch.Tensor, cube_len,
-                 det_range) -> LIOState:
+                 det_range, skip_points: bool = False,
+                 no_crop: bool = False) -> LIOState:
     """Moving-cube local map management (laserMapping.cpp:1136-1200), all
     on the device: the first scan centres the cube on the lidar, later
     scans shift it by `mov` along each axis whose face came within
-    MOV_THRESHOLD * det_range, and a shift crops the map to the new box."""
+    MOV_THRESHOLD * det_range, and a shift crops the map to the new box.
+    skip_points: see crop_outside_box (the steady plane-cache program).
+    no_crop=True only moves the cube: the dense-moment steady program
+    forgets by torus aliasing instead (IkdtreeConfig.mom_dense)."""
     half = cube_len / 2.0
     d_lo = torch.abs(pos_lid - ls.cube_lo)
     d_hi = torch.abs(ls.cube_hi - pos_lid)
@@ -104,13 +104,59 @@ def _fov_segment(ls: LIOState, pos_lid: torch.Tensor, cube_len,
     init = ls.cube_init
     lo = torch.where(init, ls.cube_lo + shift, pos_lid - half)
     hi = torch.where(init, ls.cube_hi + shift, pos_lid + half)
+    if no_crop:
+        return ls._replace(cube_lo=lo, cube_hi=hi,
+                           cube_init=torch.ones_like(init))
     need_crop = init & torch.any(near_lo | near_hi)
-    m = voxel_hash.crop_outside_box(ls.map, lo, hi, enabled=need_crop)
+    m = voxel_hash.crop_outside_box(ls.map, lo, hi, enabled=need_crop,
+                                    skip_points=skip_points)
     return ls._replace(map=m, cube_lo=lo, cube_hi=hi,
                        cube_init=torch.ones_like(init))
 
 
-def make_step_fn(cfg: LIOConfig, device: torch.device):
+def _mom_dense_window(cfg: LIOConfig) -> tuple[float, float, float]:
+    """Check the dense-moment steady program's preconditions and return
+    the per-axis half-widths of its sensor-centred insert window.
+
+    Sizes the torus from the detection geometry when
+    shapes.map_dense_log2 is None (derive_map_dense_log2, written back
+    into the config as the reference does).  The insert's delta scatter
+    corrupts a cell that two distinct voxels of one batch reach, so: one
+    row per voxel (scan leaf == map voxel); the torus spans 2 * det_range
+    horizontally; vertically at least det_range, unless
+    shapes.map_dense_z_clip opts into a shorter span.  The window (half
+    the span less one voxel per axis) keeps every batch inside the span,
+    also for returns past det_range."""
+    sh, mp, kd = cfg.shapes, cfg.mapping, cfg.ikdtree
+    vox = kd.filter_size_map_min
+    if sh.map_dense_log2 is None:
+        sh.map_dense_log2 = derive_map_dense_log2(mp.det_range, vox)
+    if mp.surf_leaf_size != vox:
+        raise ValueError(
+            "mom_dense requires surf_leaf_size == filter_size_map_min "
+            f"(got {mp.surf_leaf_size} vs {vox})")
+    for ax, lg in enumerate(sh.map_dense_log2):
+        span = (1 << lg) * vox
+        if ax < 2 and 2.0 * mp.det_range > span:
+            raise ValueError(
+                f"mom_dense torus axis {ax} spans {span:.0f} m (2^{lg} "
+                f"cells x {vox} m) < 2*det_range = {2.0 * mp.det_range:.0f}"
+                " m: distinct voxels in one scan batch would alias; raise "
+                "shapes.map_dense_log2 or lower mapping.det_range")
+        if ax == 2 and span < mp.det_range and not sh.map_dense_z_clip:
+            raise ValueError(
+                f"mom_dense torus z axis spans {span:.0f} m < det_range = "
+                f"{mp.det_range:.0f} m: a scan whose vertical spread "
+                "exceeds the span would alias distinct voxels within one "
+                "insert batch and corrupt the moment table.  Raise "
+                "shapes.map_dense_log2[2] (or leave map_dense_log2=None to "
+                "auto-size), or set shapes.map_dense_z_clip=True to clip "
+                "inserts to a sensor-centred z window of the span")
+    return tuple(0.5 * (1 << lg) * vox - vox for lg in sh.map_dense_log2)
+
+
+def make_step_fn(cfg: LIOConfig, device: torch.device,
+                 plane_cache: bool | None = None):
     """The one-scan tick on `device`:
 
     step(ls, pts, pt_t, pt_valid, imu_b, last_end_rel, scan_end_t,
@@ -121,7 +167,15 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
     duration, last_end_rel the previous scan's end relative to this scan's
     begin (computed on the host in f64: absolute epoch stamps never reach
     the device).  The map tensors are updated in place (the reference
-    donates its state buffers the same way)."""
+    donates its state buffers the same way).
+
+    plane_cache overrides cfg.ikdtree.plane_cache when not None: the
+    pipeline builds the 5-NN warmup program with plane_cache=False beside
+    the plane-cache one.  The plane-cache program under a warmup split is
+    the steady program: its crop skips the points, its insert takes the
+    budgets and touches only the moments (moments_only), or, with
+    mom_dense, writes only the dense moment table and the crop is
+    replaced by torus-wrap forgetting."""
     check_config(cfg)
     sh, mp, kd = cfg.shapes, cfg.mapping, cfg.ikdtree
     dtype = _DTYPES[cfg.dtype]
@@ -131,6 +185,16 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
     pre_grouped = mp.surf_leaf_size == kd.filter_size_map_min
     Q = imu.build_Q(mp.gyr_cov, mp.acc_cov, mp.b_gyr_cov, mp.b_acc_cov, dtype,
                     device)
+    eff_pc = kd.plane_cache if plane_cache is None else plane_cache
+    steady = eff_pc and kd.plane_cache_warmup > 0
+    mom_dense = steady and kd.mom_dense
+    if mom_dense:
+        clip_hw = torch.tensor(_mom_dense_window(cfg), dtype=dtype,
+                               device=device)
+        dshape = tuple(1 << b for b in sh.map_dense_log2) + (2,)
+    # the insert budgets and the moment freeze belong to the steady program
+    budgets = (dict(claim_budget=sh.insert_claim_budget,
+                    dense_budget=sh.insert_dense_budget) if steady else {})
 
     def step(ls: LIOState, pts, pt_t, pt_valid, imu_b: imu.ImuBatch,
              last_end_rel, scan_end_t, acc_norm):
@@ -144,7 +208,8 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
         # ---- local map FoV crop around the lidar position -----------------
         with record_function("lio.fov_crop"):
             pos_lid = x_prop.pos + so3.quat_rotate(x_prop.rot, x_prop.off_t)
-            ls = _fov_segment(ls, pos_lid, mp.cube_len, mp.det_range)
+            ls = _fov_segment(ls, pos_lid, mp.cube_len, mp.det_range,
+                              skip_points=steady, no_crop=mom_dense)
 
         # ---- scan downsample ---------------------------------------------
         with record_function("lio.downsample"):
@@ -164,8 +229,11 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
                 n_neighbors=sh.knn_neighbors,
                 single_association=kd.single_association,
                 max_live=sh.knn_max_live,
+                plane_cache=eff_pc,
                 fused_solve=kd.fused_solve,
                 early_converge=kd.early_converge,
+                solve_compact=sh.solve_compact,
+                assoc_cells=sh.assoc_cells,
             )
             with record_function("lio.update"):
                 x_post, P_post, _, info_u = esikf.update_iterated(
@@ -179,9 +247,29 @@ def make_step_fn(cfg: LIOConfig, device: torch.device):
         # ---- map incremental insert --------------------------------------
         with record_function("lio.insert"):
             pts_world = measurement.transform_to_world(x_post, pts_ds)
-            m = voxel_hash.insert(ls.map, pts_world, ds_valid,
-                                  max_probe=sh.map_max_probe,
-                                  pre_grouped=pre_grouped)
+            if mom_dense:
+                # one header gather and one budgeted row scatter into the
+                # dense moment table, inside the sensor-centred window;
+                # the hash keys, slot index and buckets stay as the
+                # warmup left them
+                ins_valid = ds_valid & torch.all(
+                    torch.abs(pts_world - pos_lid) <= clip_hw, dim=-1)
+                voxel_hash.insert_dense_moments(
+                    ls.map.dmom, dshape, ls.map.voxel_size, pts_world,
+                    ins_valid, mom_cap=kd.mom_cap,
+                    mom_budget=max(sh.insert_mom_budget, 1024))
+                m = ls.map
+            else:
+                has_mom = ls.map.mom is not None
+                m = voxel_hash.insert(
+                    ls.map, pts_world, ds_valid, max_probe=sh.map_max_probe,
+                    pre_grouped=pre_grouped, **budgets,
+                    # the steady program's association reads only the
+                    # moments, the keys and the dense index
+                    moments_only=steady and has_mom,
+                    mom_cap=kd.mom_cap if has_mom else 0,
+                    mom_budget=(sh.insert_mom_budget
+                                if steady and has_mom else 0))
 
         ls = LIOState(
             x=x_post, P=P_post, map=m, cube_lo=ls.cube_lo,
@@ -210,8 +298,12 @@ class LIOPipeline:
 
     The analog of the reference main() loop: the first MAX_INI_COUNT IMU
     samples run static initialisation (IMU_Processing.hpp:393-433), then
-    every scan runs the tick.  Runs on ``cuda`` unless `device` names
-    another device; raises if no GPU is present and no device was named.
+    every scan runs the tick.  With the plane cache the first
+    `plane_cache_warmup` scans run the 5-NN warmup program while the
+    moments densify, then the steady program; under mom_dense the slot
+    moments move into the dense moment table once, right before the
+    first steady scan.  Runs on ``cuda`` unless `device` names another
+    device; raises if no GPU is present and no device was named.
     """
 
     MAX_INI_COUNT = 10  # IMU_Processing.hpp:4
@@ -226,6 +318,20 @@ class LIOPipeline:
                 "graphs / torch.distributed)")
         self.cfg = cfg
         self._step = make_step_fn(cfg, self.device)  # validates cfg
+        kd = cfg.ikdtree
+        # plane-cache warmup: the 5-NN association for the first scans,
+        # while the moment cache densifies (its n >= 5 gate starves on a
+        # young map), then the plane-cache program
+        self._warmup_scans = kd.plane_cache_warmup if kd.plane_cache else 0
+        if self._warmup_scans > 0:
+            self._step_warm = make_step_fn(cfg, self.device,
+                                           plane_cache=False)
+        if kd.mom_dense and not (self._warmup_scans > 0
+                                 and cfg.shapes.map_dense_log2 is not None):
+            raise ValueError("mom_dense requires plane_cache, "
+                             "plane_cache_warmup > 0 and "
+                             "shapes.map_dense_log2")
+        self._scan_count = 0  # scans run through a step program
         self.dtype = _DTYPES[cfg.dtype]
         if self.device.type == "cuda" and self.dtype != torch.float32:
             raise NotImplementedError(
@@ -249,7 +355,8 @@ class LIOPipeline:
             capacity_log2=sh.map_capacity_log2, bucket=sh.map_bucket,
             voxel_size=self.cfg.ikdtree.filter_size_map_min,
             dtype=self.dtype, device=self.device,
-            dense_log2=sh.map_dense_log2)
+            dense_log2=sh.map_dense_log2,
+            moments=self.cfg.ikdtree.plane_cache)
 
         def z3():
             return torch.zeros(3, dtype=self.dtype, device=self.device)
@@ -258,6 +365,16 @@ class LIOPipeline:
         return LIOState(x=x, P=P, map=m, cube_lo=z3(), cube_hi=z3(),
                         cube_init=false, last_acc_w=z3(), last_gyr_b=z3(),
                         ekf_inited=false.clone())
+
+    def _ensure_dmom(self) -> None:
+        """The warmup->steady handoff of the dense-moment program: build
+        the torus moment table from the warmup map's slot moments, around
+        the FoV-cube centre, once (no host read)."""
+        if not self.cfg.ikdtree.mom_dense or self.ls.map.dmom is not None:
+            return
+        center = (self.ls.cube_lo + self.ls.cube_hi) * 0.5
+        dmom = voxel_hash.build_dense_moments(self.ls.map, center)
+        self.ls = self.ls._replace(map=self.ls.map._replace(dmom=dmom))
 
     def _try_init(self, imu_acc: np.ndarray, imu_gyr: np.ndarray) -> bool:
         self._init_acc.append(imu_acc)
@@ -311,6 +428,12 @@ class LIOPipeline:
 
         P, T, V = self._pad_points(pts, pt_t)
         A, G, Tt, Mk = self._pad_imu(imu_acc, imu_gyr, imu_t)
+        self._scan_count += 1
+        if self._scan_count > self._warmup_scans:
+            self._ensure_dmom()
+            step = self._step
+        else:
+            step = self._step_warm
         # f64 host clock: only relative times reach the device
         last_end_rel = (self.last_scan_end_abs - scan_beg_abs
                         if self.last_scan_end_abs is not None else 0.0)
@@ -318,7 +441,7 @@ class LIOPipeline:
 
         batch = imu.ImuBatch(acc=self._t(A), gyr=self._t(G), t=self._t(Tt),
                              mask=self._t(Mk, torch.bool))
-        self.ls, info_vec = self._step(
+        self.ls, info_vec = step(
             self.ls, self._t(P), self._t(T), self._t(V, torch.bool), batch,
             self._t(last_end_rel), self._t(scan_end_t), self._t(self.acc_norm))
         return self._record(np.asarray(to_host(info_vec), np.float32))

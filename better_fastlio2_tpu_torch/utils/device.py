@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "to_host", "nonzero", "host_syncs"]
+__all__ = ["resolve_device", "to_host", "nonzero", "nonzero_static",
+           "host_syncs"]
 
 
 class _SyncCounter:
@@ -53,3 +54,19 @@ def nonzero(mask: torch.Tensor) -> torch.Tensor:
     size is data-dependent, so this counts one synchronisation."""
     host_syncs.count += 1
     return torch.nonzero(mask).squeeze(1)
+
+
+def nonzero_static(mask: torch.Tensor, size: int,
+                   fill_value: int) -> torch.Tensor:
+    """jnp.nonzero(mask, size=size, fill_value=fill_value)[0] without a
+    host read: the first `size` true indices of a 1-D mask, ascending,
+    padded with fill_value, as a (size,) int64 tensor.  Each true entry's
+    rank comes from a cumsum; the entries ranked below `size` scatter to
+    their rank, every other lane to a sink slot that is cut off."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    dst = torch.where(mask & (rank < size), rank, size)
+    out = torch.full((size + 1,), fill_value, dtype=torch.int64,
+                     device=mask.device)
+    out.index_put_((dst,), torch.arange(n, device=mask.device))
+    return out[:size]

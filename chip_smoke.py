@@ -40,10 +40,25 @@ Phases (any failure exits non-zero and prints no result line):
   6. row_ext — the row path with extrinsic estimation (12 gain columns);
                end error and ATE <= 0.15 m, looser than the room gate
                because the JAX package itself reads 0.08 m there;
-  7. library_graph — the library calls' device time per call (graph
+  7. bench_room — the bench configuration of bench.py:249-309 on the room
+               sequence (slice 3): 16 warmup scans of 5-NN association,
+               then the steady program (moment planes from the dense
+               moment table, the dense-moment insert, the insert budgets),
+               K1 on every updated scan and re-checked on three steady
+               scans, K2 never; the room gate; ms/scan, port reads and
+               torch syncs reported for the warmup and the steady scans
+               apart, and whether the dense moment table was built;
+  8. bench_outdoor — the same on 400 scans of the outdoor sequence with
+               n_ds 10240, solve_compact 8192 and ds_drop_high_z; K1's
+               launches counted by the width of the buffer they ran on
+               (the compacted (16, 8192) and the full (16, 10240)), at
+               least one compacted, and K1 re-checked on a compacted call
+               of the path; bench.py's outdoor gate (end error <= 0.136
+               m, ATE <= 0.68 m: 2x and 10x the C++ reference's 0.068 m);
+  9. library_graph — the library calls' device time per call (graph
                replay), after the paths so that the cuBLAS workspace of
                the capturing stream does not count in their peak memory;
-  8. one_launch — under torch.profiler, one call of K1 and of K2 in each
+ 10. one_launch — under torch.profiler, one call of K1 and of K2 in each
                mode runs exactly one device kernel (run last, so that the
                profiler cannot touch the timed paths).
 
@@ -66,7 +81,10 @@ import warnings
 import numpy as np
 
 N_SCANS = 240
+N_SCANS_OUTDOOR = 400
 WARMUP_SCANS = 20
+PLANE_CACHE_WARMUP = 16  # bench.py's 5-NN warmup scans before the steady program
+SOLVE_COMPACT = 8192  # the outdoor workload's compacted solve width (bench.py)
 CHECK_SCANS = (60, 130, 200)  # scans whose kernel inputs are re-checked
 TIMING_RUNS = 100
 GRAPH_CALLS = 100  # calls captured in one CUDA graph for device_us
@@ -388,9 +406,16 @@ def phase_kernels(floor_us: float) -> dict:
     # never reads), the pose, and G plus n_moved written
     bytes_moved = 13 * n * 4 + params.numel() * 4 + (64 + 1) * 4
     bound_ms, bound_by = bound(bytes_moved, K1_FLOPS_PER_LANE * n)
+    bound_c, _ = bound(13 * SOLVE_COMPACT * 4 + params.numel() * 4
+                       + (64 + 1) * 4, K1_FLOPS_PER_LANE * SOLVE_COMPACT)
     soa1, params1 = (t.cuda() for t in random_soa(1, 3))
+    soa_c, params_c = (t.cuda() for t in random_soa(SOLVE_COMPACT, 4))
+    call_c = functools.partial(kernels.fused_normal_eqs, soa_c, params_c)
     out = {"phase": "kernels", "checks": checks, "ms": time_ms(call),
            "device_us": graph_us(call),
+           # the outdoor path's compacted (16, 8192) buffer
+           "ms_compact": time_ms(call_c), "device_us_compact": graph_us(call_c),
+           "compact_n": SOLVE_COMPACT, "bound_ms_compact": bound_c,
            # one lane: the fixed cost of the launch, barriers and reduction
            "device_us_n1": graph_us(functools.partial(
                kernels.fused_normal_eqs, soa1, params1)),
@@ -567,17 +592,39 @@ def row_config(extrinsic: bool):
     return cfg
 
 
+def bench_config(workload: str):
+    """bench.py:249-309 for `workload` ("room" or "outdoor"): room_config()
+    with the plane cache after a 16-scan warmup, the dense moment table
+    (mom_dense), the insert budgets 2048 / 2048 / 4096 and, outdoors,
+    n_ds 10240, solve_compact 8192 and ds_drop_high_z."""
+    cfg = room_config()
+    sh = cfg.shapes
+    sh.insert_claim_budget = 2048
+    sh.insert_dense_budget = 2048
+    sh.insert_mom_budget = 4096
+    if workload == "outdoor":
+        sh.n_ds = sh.knn_chunk = 10240
+        sh.solve_compact = SOLVE_COMPACT
+        sh.ds_drop_high_z = True
+    cfg.ikdtree.plane_cache = True
+    cfg.ikdtree.plane_cache_warmup = PLANE_CACHE_WARMUP
+    cfg.ikdtree.mom_dense = True
+    return cfg
+
+
 KERNELS = {"fused_normal_eqs": compare_k1, "fused_hth": compare_k2}
 
 
 def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
-                  device=None, check_scans=CHECK_SCANS) -> dict:
+                  device=None, check_scans=CHECK_SCANS,
+                  check_width: int | None = None) -> dict:
     """Drive LIOPipeline over `groups`; return the per-scan record, each
-    kernel's launch count over the run (counts set to 0 just before), the
-    host syncs per scan (the port's to_host reads, and on CUDA every
-    synchronising call torch reports), and the re-checks of `kernel` on
-    `check_scans` (inputs captured as the path made them, compared after
-    the run)."""
+    kernel's launch count over the run (counts set to 0 just before) and
+    `kernel`'s calls by the width of their input, the host syncs per scan
+    (the port's to_host reads, and on CUDA every synchronising call torch
+    reports), and the re-checks of `kernel` on `check_scans` and on its
+    first call of width `check_width` (inputs captured as the path made
+    them, compared after the run)."""
     import torch
 
     from better_fastlio2_tpu_torch.core import measurement
@@ -588,9 +635,17 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
     fns = {name: getattr(kernels, name) for name in KERNELS}
     real = fns[kernel]
     captured = []
+    widths: dict[int, int] = {}
+    capture = [False]  # capture this call's inputs and outputs
 
-    def spy(*args, **kw):  # records the path's own inputs and outputs
+    def spy(*args, **kw):  # counts widths, records the path's own calls
         out = real(*args, **kw)
+        width = args[0].shape[-1] if kernel == "fused_normal_eqs" else (
+            args[0].shape[0])
+        widths[width] = widths.get(width, 0) + 1
+        first_of_width = width == check_width and widths[width] == 1
+        if not (capture[0] or first_of_width):
+            return out
         if kernel == "fused_hth":
             captured.append(([a.clone() for a in args], kw["extrinsic"],
                              *(o.clone() for o in out)))
@@ -599,6 +654,7 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                              *(o.clone() for o in out)))
         return out
 
+    t_run = time.perf_counter()
     pipe = LIOPipeline(cfg, device=device)
     cuda = pipe.device.type == "cuda"
     if cuda:
@@ -618,8 +674,8 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                     gt.append(g["gt_pos"])
                 l0 = {name: f.launches for name, f in fns.items()}
                 s0, w0 = host_syncs.count, len(caught)
-                setattr(measurement, kernel,
-                        spy if i in check_scans else real)
+                capture[0] = i in check_scans
+                setattr(measurement, kernel, spy)
                 t0 = time.perf_counter()
                 try:
                     out = pipe.process_scan(
@@ -647,10 +703,12 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
     compare = KERNELS[kernel]
     checks = [compare(*c) for c in captured]
     return {"traj": np.array(pipe.trajectory), "gt": np.array(gt),
+            "n_scans": len(groups),
+            "seconds": time.perf_counter() - t_run,
             "scan_ms": scan_ms, "launches": launches, "syncs": syncs,
-            "torch_syncs": torch_syncs,
+            "torch_syncs": torch_syncs, "widths": widths,
             "outs": outs, "totals": totals, "checks": checks,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "dmom_built": pipe.ls.map.dmom is not None}
 
 
 def accuracy(traj: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
@@ -664,12 +722,16 @@ def accuracy(traj: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
 
 
 def summarize(name: str, res: dict, kernel: str, gate_end: float,
-              gate_ate: float) -> dict:
+              gate_ate: float, program_warmup: int = 0) -> dict:
     """Check one main-path run (every scan tracked and finite; `kernel`
     launched on every updated scan, the other kernel never; the inputs of
-    every check scan captured; the accuracy gate) and print its line."""
+    every check scan captured; the accuracy gate) and print its line.
+    program_warmup > 0 (the bench paths): the first that many scans ran
+    the warmup program; ms/scan, port reads and torch syncs are given for
+    them and for the steady scans apart, and the steady program must
+    have built the dense moment table."""
     traj = res["traj"]
-    if len(traj) != N_SCANS - 1 or not np.all(np.isfinite(traj)):
+    if len(traj) != res["n_scans"] - 1 or not np.all(np.isfinite(traj)):
         fail(f"{name}: trajectory has {len(traj)} rows or non-finite values")
     # every scan but the first (which only builds the map) runs the update
     per_scan = res["launches"][kernel]
@@ -683,15 +745,21 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
     if len(res["checks"]) < len(CHECK_SCANS):
         fail(f"{name}: the path's {kernel} inputs were not captured on "
              "every check scan")
+    if program_warmup and not res["dmom_built"]:
+        fail(f"{name}: the steady program never built the dense moment "
+             "table")
     ate, end = accuracy(traj, res["gt"])
     if end > gate_end or ate > gate_ate:
         fail(f"{name} accuracy gate: end error {end:.4f} m (<= {gate_end}),"
              f" ATE {ate:.4f} m (<= {gate_ate})")
     n_ds = [o["n_ds"] for o in res["outs"]]
     n_eff = [o["n_eff"] for o in res["outs"]]
-    steady = res["scan_ms"][WARMUP_SCANS:]
+    # scan_ms[i] is the (i + 1)-th scan through a step program
+    first = program_warmup or WARMUP_SCANS
+    steady = res["scan_ms"][first:]
     out = {
         "phase": name, "scans": len(traj), "kernel": kernel,
+        "seconds": res["seconds"],
         "ms_per_scan_median": float(np.median(steady)),
         "ms_per_scan_p90": float(np.percentile(steady, 90)),
         "launches_total": res["totals"][kernel],
@@ -706,6 +774,26 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
         "map_voxels_final": res["outs"][-1]["map_voxels"],
         "checks": res["checks"],
     }
+    if program_warmup:
+        # the warmup program's scans but the first, which only builds the
+        # map, against the steady program's
+        w = slice(1, program_warmup)
+        st = slice(program_warmup, None)
+        out.update({
+            "ms_per_scan_warmup_median": float(np.median(
+                res["scan_ms"][w])),
+            "launches_per_scan_warmup": float(np.mean(per_scan[w])),
+            "launches_per_scan_steady": float(np.mean(per_scan[st])),
+            "port_reads_per_scan_warmup": float(np.mean(res["syncs"][w])),
+            "port_reads_per_scan_steady": float(np.mean(res["syncs"][st])),
+            "torch_syncs_per_scan_warmup": float(np.mean(
+                res["torch_syncs"][w])),
+            "torch_syncs_per_scan_steady": float(np.mean(
+                res["torch_syncs"][st])),
+            "dmom_built": res["dmom_built"],
+            "launches_by_width": {str(k): v for k, v in
+                                  sorted(res["widths"].items())},
+        })
     if name in JAX_ROOM_REF:
         out["jax_cpu_f32_ate_end_m"] = JAX_ROOM_REF[name]
     print(json.dumps(out), flush=True)
@@ -715,6 +803,7 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
 def main() -> None:
     # the smoke runs on one card: make it the only one CUDA sees
     os.environ["CUDA_VISIBLE_DEVICES"] = first_card()
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -741,9 +830,30 @@ def main() -> None:
     row_ext = summarize("row_ext", run_main_path(row_config(True), groups,
                                                  "fused_hth"), "fused_hth",
                         0.15, 0.15)
+    bench_room = summarize(
+        "bench_room", run_main_path(bench_config("room"), groups),
+        "fused_normal_eqs", 0.030, 0.15, program_warmup=PLANE_CACHE_WARMUP)
+    t0 = time.perf_counter()
+    outdoor = make_bench_sequence("outdoor", N_SCANS_OUTDOOR)
+    print(json.dumps({"phase": "sequence_outdoor", "scans": N_SCANS_OUTDOOR,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    res = run_main_path(bench_config("outdoor"), outdoor,
+                        check_width=SOLVE_COMPACT)
+    del outdoor
+    compacted = res["widths"].get(SOLVE_COMPACT, 0)
+    if not compacted:
+        fail(f"bench_outdoor: no K1 launch ran on the compacted (16, "
+             f"{SOLVE_COMPACT}) buffer: {res['widths']}")
+    if not any(c["n"] == SOLVE_COMPACT for c in res["checks"]):
+        fail("bench_outdoor: K1 was not re-checked on a compacted call")
+    bench_outdoor = summarize("bench_outdoor", res, "fused_normal_eqs",
+                              0.136, 0.68, program_warmup=PLANE_CACHE_WARMUP)
     lib = phase_library_graph()
     phase_one_launch()
-    k1_err = max(c["max_abs_err"] for c in k1["checks"] + main_out["checks"])
+    print(json.dumps({"phase": "total",
+                      "seconds": time.perf_counter() - t_start}), flush=True)
+    k1_err = max(c["max_abs_err"] for c in k1["checks"] + main_out["checks"]
+                 + bench_room["checks"] + bench_outdoor["checks"])
     k2_err = max(c["max_abs_err"] for c in
                  k2["checks"] + row["checks"] + row_ext["checks"])
     k2_t = k2["timing"]["ext"]
@@ -753,10 +863,17 @@ def main() -> None:
         "route": "cuda",
         "source": "better_fastlio2_tpu_torch/csrc/fused_normal_eqs.cu",
         "replaces": "better_fastlio2_tpu/ops/pallas_kernels.py:147",
-        "launches": main_out["launches_total"],
+        "launches": (main_out["launches_total"]
+                     + bench_room["launches_total"]
+                     + bench_outdoor["launches_total"]),
+        "launches_by_phase": {p["phase"]: p["launches_total"] for p in
+                              (main_out, bench_room, bench_outdoor)},
         "max_abs_err": k1_err,
         "ms": k1["ms"],
         "device_us": k1["device_us"],
+        "ms_compact": k1["ms_compact"],
+        "device_us_compact": k1["device_us_compact"],
+        "bound_ms_compact": k1["bound_ms_compact"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],

@@ -34,6 +34,15 @@ eager call, the scalar-load branch (N not a multiple of 4 for K1, a view
 with a storage offset) bit-identical to the 16-byte-load branch on the
 same values, and N = 2^18 (16 trips of the cluster) within the same
 tolerances.
+
+The bench configuration (slice 3): the dense-moment insert and the moment
+insert with duplicate world voxels in a batch are bit-identical over two
+runs on the card (the float scatter-adds are sorted segment sums, not
+atomics), so is the whole bench-configuration pipeline, and it agrees
+with the CPU within the bounds above.  K1 on the compacted (16, B)
+buffer of solve_compact equals K1 on the full buffer within
+fused_normal_eqs_tolerance of the full buffer's inputs (the dead lanes
+add exact zeros).
 """
 
 import numpy as np
@@ -44,7 +53,8 @@ from chip_smoke import device_kernels, offset_view, random_hth
 
 from better_fastlio2_tpu_torch.config import (IkdtreeConfig, LIOConfig,
                                               MappingConfig, ShapesConfig)
-from better_fastlio2_tpu_torch.io.synthetic import (Trajectory,
+from better_fastlio2_tpu_torch.io.synthetic import (SyntheticWorld,
+                                                    Trajectory,
                                                     make_lio_sequence)
 from better_fastlio2_tpu_torch.map import voxel_hash
 from better_fastlio2_tpu_torch.ops import kernels as tk
@@ -362,3 +372,134 @@ def test_cuda_large_n_strides_inside_the_cluster(cuda, which):
     _check_plain(which, ins, out)
     again = call(*ins)
     assert all(torch.equal(a, b) for a, b in zip(again, out))
+
+
+def _bench_cfg():
+    """The bench configuration (plane cache after a short warmup,
+    mom_dense, the insert budgets, solve_compact) at small shapes, for
+    the small room of _bench_groups."""
+    cfg = _cfg()
+    sh = cfg.shapes
+    sh.map_dense_log2, sh.map_dense_z_clip = (7, 7, 5), True
+    sh.insert_claim_budget = sh.insert_dense_budget = 256
+    sh.insert_mom_budget = 1024
+    sh.solve_compact = 3000
+    cfg.mapping.det_range = 15.0
+    kd = cfg.ikdtree
+    kd.plane_cache, kd.plane_cache_warmup = True, 6
+    kd.mom_dense = kd.early_converge = True
+    return cfg
+
+
+def _bench_groups():
+    return make_lio_sequence(
+        duration=1.6, n_points=4000, seed=3, noise=0.004,
+        traj=Trajectory(t_still=0.5, speed=2.0),
+        world=SyntheticWorld(seed=0, half_x=12.0, half_y=12.0, height=5.0))
+
+
+def _dup_batch(rng, n=3000, vs=0.5):
+    """Points one per voxel, then 40 rows copied into the voxel of an
+    earlier row (the body->world duplicates of the pipeline)."""
+    cells = rng.choice(40 * 40 * 8, size=n, replace=False)
+    ijk = np.stack([cells % 40 - 20, (cells // 40) % 40 - 20,
+                    cells // 1600 - 4], -1)
+    pts = (ijk + rng.uniform(0.05, 0.95, size=(n, 3))) * vs
+    pts[-40:] = (np.floor(pts[:40] / vs)
+                 + rng.uniform(0.05, 0.95, size=(40, 3))) * vs
+    return pts.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_moment_inserts_are_deterministic(cuda):
+    runs = []
+    for _ in range(2):
+        rng = np.random.default_rng(21)
+        m = voxel_hash.make_map(capacity_log2=15, bucket=4, voxel_size=0.5,
+                                device=cuda, dense_log2=(6, 6, 5),
+                                moments=True)
+        dshape = m.dense.shape
+        for k in range(4):
+            pts = torch.as_tensor(_dup_batch(rng), device=cuda)
+            ok = torch.as_tensor(rng.uniform(size=len(pts)) > 0.05,
+                                 device=cuda)
+            # the full scatter with the rescale, then the freeze path
+            m = voxel_hash.insert(m, pts, ok, max_probe=8, mom_cap=3,
+                                  mom_budget=0 if k < 2 else 2048,
+                                  pre_grouped=k >= 2)
+        dmom = voxel_hash.build_dense_moments(
+            m, torch.zeros(3, device=cuda))
+        for _ in range(3):
+            pts = torch.as_tensor(_dup_batch(rng), device=cuda)
+            ok = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+            dmom, _ = voxel_hash.insert_dense_moments(
+                dmom, dshape, m.voxel_size, pts, ok, mom_cap=3,
+                mom_budget=2048)
+        runs.append((m.mom.clone(), dmom.clone()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert float(runs[0][1][:, 1].min()) >= 0.0  # no corrupted counts
+
+
+@pytest.mark.cuda
+def test_cuda_bench_pipeline_is_deterministic(cuda):
+    groups = _bench_groups()
+    runs = []
+    for _ in range(2):
+        p = LIOPipeline(_bench_cfg())
+        for g in groups:
+            p.process_scan(*_args(g))
+        assert p.ls.map.dmom is not None  # the steady program ran
+        runs.append((np.array(p.trajectory), p.ls.map.dmom.cpu().numpy()))
+    assert len(runs[0][0]) >= 14
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_bench_pipeline_matches_cpu(cuda):
+    groups = _bench_groups()
+    pc = LIOPipeline(_bench_cfg(), device="cpu")
+    pg = LIOPipeline(_bench_cfg())
+    before = tk.fused_normal_eqs.launches
+    n, err = 0, []
+    for g in groups:
+        args = _args(g)
+        oc, og = pc.process_scan(*args), pg.process_scan(*args)
+        if oc is None:
+            assert og is None
+            continue
+        n += 1
+        assert abs(og["n_ds"] - oc["n_ds"]) <= max(3, 0.002 * oc["n_ds"])
+        np.testing.assert_allclose(og["pos"], oc["pos"], atol=1e-2)
+        err.append(np.linalg.norm(og["pos"] - (g["gt_pos"] - [0, 0, 1.5])))
+    assert n >= 14 and pg.ls.map.dmom is not None
+    assert np.sqrt(np.mean(np.square(err))) < 0.10
+    assert tk.fused_normal_eqs.launches - before >= n - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(16384, 16384 - 3000), (10240, 8192)])
+def test_cuda_k1_compacted_matches_full(cuda, n, B):
+    """K1 over the live lanes gathered into a zero-filled (16, B) buffer
+    against K1 over the full (16, N) buffer."""
+    soa, params = _soa(n, n + 1)
+    soa[tk._OK] *= soa[tk._VAL]  # fit_ok includes the row-valid mask
+    live = (soa[tk._OK] > 0) & (soa[tk._VAL] > 0)
+    idx = torch.nonzero(live).squeeze(1)
+    assert len(idx) <= B
+    soa_c = torch.zeros(tk.SOA_CH, B)
+    soa_c[:, :len(idx)] = soa[:, idx]
+    soa, soa_c, params = soa.to(cuda), soa_c.to(cuda), params.to(cuda)
+    G_f, mv_f = tk.fused_normal_eqs(soa, params)
+    G_c, mv_c = tk.fused_normal_eqs(soa_c, params)
+    # both within the tolerance of the plain sum over the full buffer, so
+    # within twice it of each other
+    G_r, _ = tk.fused_normal_eqs_reference(soa, params)
+    G_tol, slack, _ = tk.fused_normal_eqs_tolerance(soa, params)
+    for G in (G_f, G_c):
+        assert bool(((G.double() - G_r.double()).abs() <= G_tol).all())
+    # n_moved counts only the live lanes on the compacted buffer
+    _, mv_live = tk.fused_normal_eqs_reference(soa_c, params)
+    assert abs(float(mv_c) - float(mv_live)) <= slack
+    assert float(mv_c) <= float(mv_f) + slack

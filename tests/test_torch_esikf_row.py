@@ -27,6 +27,7 @@ from better_fastlio2_tpu_torch.core import measurement as tmeas
 from better_fastlio2_tpu_torch.core import state as tstate
 from better_fastlio2_tpu_torch.ops import kernels as tk
 from better_fastlio2_tpu_torch.utils import so3 as tso3
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # the extrinsic of configs/velodyne64_kitti.yaml:19-22 (R nearly the

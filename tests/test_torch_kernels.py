@@ -33,6 +33,7 @@ from chip_smoke import random_hth
 from better_fastlio2_tpu.ops import pallas_kernels as jpk
 from better_fastlio2_tpu_torch.ops import _build
 from better_fastlio2_tpu_torch.ops import kernels as tk
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _soa_inputs(rng, n):

@@ -20,6 +20,7 @@ from better_fastlio2_tpu.ops.downsample import voxel_downsample as j_ds
 from better_fastlio2_tpu.utils import so3 as jso3
 from better_fastlio2_tpu_torch.map import voxel_hash as tvh
 from better_fastlio2_tpu_torch.ops.downsample import voxel_downsample as t_ds
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a, dtype=None):

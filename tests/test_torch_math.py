@@ -28,6 +28,7 @@ from better_fastlio2_tpu_torch.core import state as tstate
 from better_fastlio2_tpu_torch.map import voxel_hash as tvh
 from better_fastlio2_tpu_torch.utils import s2 as ts2
 from better_fastlio2_tpu_torch.utils import so3 as tso3
+from torch_threads import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -29,6 +29,7 @@ import better_fastlio2_tpu_torch.config as tcfg
 import better_fastlio2_tpu_torch.io.synthetic as tsyn
 from better_fastlio2_tpu_torch import convert
 from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 ORIGIN = np.array([0.0, 0.0, 1.5])  # the filter's origin: the IMU at init
@@ -170,10 +171,6 @@ def test_pipeline_device_rules():
 
 
 UNSUPPORTED = {
-    "plane_cache": lambda c: setattr(c.ikdtree, "plane_cache", True),
-    "mom_dense": lambda c: setattr(c.ikdtree, "mom_dense", True),
-    "solve_compact": lambda c: setattr(c.shapes, "solve_compact", 1024),
-    "insert_budget": lambda c: setattr(c.shapes, "insert_claim_budget", 64),
     "rebuild": lambda c: setattr(c.ikdtree, "recontruct_kdtree", True),
     "features": lambda c: setattr(c.preprocess, "feature_extract_enable",
                                   True),
@@ -183,6 +180,34 @@ PORTED_IN_SLICE_2 = {
     "extrinsic_est": lambda c: setattr(c.mapping, "extrinsic_est_en", True),
     "row_path": lambda c: setattr(c.ikdtree, "fused_solve", False),
     "grouped_insert": lambda c: setattr(c.mapping, "surf_leaf_size", 0.5),
+}
+
+
+def _plane_cache(c):
+    """The plane cache, its steady program from the sixth scan on."""
+    c.ikdtree.plane_cache = True
+    c.ikdtree.plane_cache_warmup = 5
+
+
+def _mom_dense(c):
+    _plane_cache(c)
+    c.ikdtree.mom_dense = True
+    # the (8, 8, 7) torus at 0.4 m spans 102.4 m: 2 * det_range must fit
+    c.mapping.det_range = 50.0
+
+
+def _insert_budget(c):
+    _plane_cache(c)  # the budgets bind in the steady program only
+    c.shapes.insert_claim_budget = c.shapes.insert_dense_budget = 64
+    c.shapes.insert_mom_budget = 256
+
+
+# refused by slices 1 and 2, ported by slice 3 (the bench configuration)
+PORTED_IN_SLICE_3 = {
+    "plane_cache": _plane_cache,
+    "mom_dense": _mom_dense,
+    "solve_compact": lambda c: setattr(c.shapes, "solve_compact", 1024),
+    "insert_budget": _insert_budget,
 }
 
 
@@ -243,22 +268,35 @@ def test_port_imports_no_jax():
     assert "BAD []" in r.stdout
 
 
-@pytest.mark.parametrize("what", sorted(PORTED_IN_SLICE_2))
+@pytest.mark.parametrize("what", sorted(PORTED_IN_SLICE_2)
+                         + sorted(PORTED_IN_SLICE_3))
 def test_former_refusals_run(what):
-    """The options slice 1 refused now construct and run on the CPU: IMU
-    init, the map-building scan, then updates whose associations grow as
-    the young map fills in (43 valid rows by the fifth scan)."""
+    """The options earlier slices refused now construct and run on the CPU:
+    IMU init, the map-building scan, then updates whose associations grow
+    as the young map fills in (43 valid rows by the fifth scan).  Slice 3's
+    run ten scans, so that the plane-cache ones pass their five warmup
+    scans and associate by the moment plane (23-145 valid rows; with the
+    claim budget the map grows by at most 64 voxels a scan)."""
     cfg = slice_cfg(tcfg)
-    PORTED_IN_SLICE_2[what](cfg)
+    n_scans = 5
+    if what in PORTED_IN_SLICE_2:
+        PORTED_IN_SLICE_2[what](cfg)
+    else:
+        PORTED_IN_SLICE_3[what](cfg)
+        n_scans = 10
     tp = LIOPipeline(cfg, device="cpu")
-    outs = [tp.process_scan(*_args(g)) for g in _groups()[:5]]
+    outs = [tp.process_scan(*_args(g)) for g in _groups()[:n_scans]]
     assert outs[0] is None and outs[1]["n_eff"] == 0
-    assert outs[4]["n_eff"] > 20 and outs[4]["map_voxels"] > 8000
-    assert np.all(np.isfinite(outs[4]["pos"]))
+    assert outs[-1]["n_eff"] > 20 and outs[-1]["map_voxels"] > 8000
+    assert np.all(np.isfinite(outs[-1]["pos"]))
+    assert (tp.ls.map.dmom is not None) == (what == "mom_dense")
+    if what == "insert_budget":
+        grown = np.diff([o["map_voxels"] for o in outs[6:]])
+        assert 0 < grown.max() <= 64
 
 
 # the shipped configurations the port refuses, with the option at fault
-SHIPPED_REFUSED = {"velodyne64_kitti.yaml": "insert budgets"}
+SHIPPED_REFUSED: dict[str, str] = {}
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -278,7 +316,11 @@ def test_shipped_configs(name):
                            match=SHIPPED_REFUSED[name]):
             LIOPipeline(cfg, device="cpu")
         return
-    cfg.shapes = slice_cfg(tcfg).shapes
+    small = slice_cfg(tcfg).shapes
+    for k in ("insert_claim_budget", "insert_dense_budget",
+              "insert_mom_budget", "solve_compact"):
+        setattr(small, k, getattr(cfg.shapes, k))  # the file's own options
+    cfg.shapes = small
     tp = LIOPipeline(cfg, device="cpu")
     outs = [tp.process_scan(*_args(g)) for g in _groups()[:10]]
     assert outs[0] is None and max(o["n_eff"] for o in outs[1:]) > 0

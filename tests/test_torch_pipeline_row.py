@@ -38,6 +38,7 @@ import better_fastlio2_tpu_torch.config as tcfg
 from better_fastlio2_tpu_torch import convert
 from better_fastlio2_tpu_torch.ops import kernels as tk
 from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+from torch_threads import one_torch_thread  # noqa: F401
 
 ORIGIN = np.array([0.0, 0.0, 1.5])  # the filter's origin: the IMU at init
 SNAP = 10  # scan index whose post-state seeds the one-step test

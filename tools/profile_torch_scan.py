@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """Where a scan's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python tools/profile_torch_scan.py [--config {fused,row,row_ext}]
+    python tools/profile_torch_scan.py [--config {fused,row,row_ext,
+                                        bench_room,bench_outdoor}]
                                        [--warmup 40] [--window 20]
 
 Runs one main path of chip_smoke.py (LIOPipeline at the room bench shapes
 on make_bench_sequence("room")): `fused` the single-association fused
 solve (slice 1, K1), `row` the ESIKF row path with the reference
-re-association (K2), `row_ext` the row path with extrinsic estimation.  It
-runs --warmup scans, then records --window steady scans under
-torch.profiler (CPU and CUDA activities).  Prints the card's name and
-power limit and one JSON line:
+re-association (K2), `row_ext` the row path with extrinsic estimation,
+`bench_room` / `bench_outdoor` the bench configuration of bench.py (slice
+3, K1; the outdoor one on make_bench_sequence("outdoor")).  It runs
+--warmup scans, then records --window steady scans under torch.profiler
+(CPU and CUDA activities).  The bench configurations first record the
+warmup program apart: scans 3-10 under the profiler and the syncs of
+scans 11-15, all before the steady program starts at scan 17.  Prints the
+card's name and power limit and one JSON line; a bench configuration's
+line holds the fields below for the steady scans and, under `warmup`, for
+the warmup program's:
 
   wall_ms_per_scan        host clock per scan (each scan ends in the info
                           readback, which waits for the device)
@@ -58,6 +65,14 @@ import chip_smoke as cs  # noqa: E402
 
 SYNC_SCANS = 5  # unprofiled scans over which the syncs are counted
 PORT = "better_fastlio2_tpu_torch"
+# the bench configurations' warmup-program windows (sequence indices; the
+# first group only initialises, group k runs the k-th step)
+WARM_PROFILED = range(3, 11)
+WARM_SYNCED = range(11, 16)
+CONFIGS = {"fused": cs.room_config, "row": lambda: cs.row_config(False),
+           "row_ext": lambda: cs.row_config(True),
+           "bench_room": lambda: cs.bench_config("room"),
+           "bench_outdoor": lambda: cs.bench_config("outdoor")}
 
 
 def _dev_time(ev) -> float:
@@ -83,75 +98,21 @@ def _union_us(intervals) -> float:
     return total
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("fused", "row", "row_ext"),
-                    default="fused")
-    ap.add_argument("--warmup", type=int, default=40)
-    ap.add_argument("--window", type=int, default=20)
-    args = ap.parse_args()
-
+def profile_window(feed, groups) -> dict:
+    """Feed `groups` under torch.profiler; the per-scan breakdown of the
+    module docstring (without the syncs)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from better_fastlio2_tpu_torch.io.synthetic import make_bench_sequence
-    from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
-    from better_fastlio2_tpu_torch.utils.device import host_syncs
-
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
-    card = cs.card_line()
-    groups = make_bench_sequence(
-        "room", args.warmup + args.window + SYNC_SCANS + 1)
-    cfg = {"fused": cs.room_config, "row": lambda: cs.row_config(False),
-           "row_ext": lambda: cs.row_config(True)}[args.config]()
-    pipe = LIOPipeline(cfg)
-
-    def feed(g):
-        return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
-                                 g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
-                                 g["scan_end_t"])
-
-    for g in groups[:args.warmup]:
-        feed(g)
-    torch.cuda.synchronize()
-    window = groups[args.warmup:args.warmup + args.window]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for g in window:
+        for g in groups:
             feed(g)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    n = len(window)
-
-    sync_window = groups[args.warmup + args.window:][:SYNC_SCANS]
-    sites: collections.Counter = collections.Counter()
-
-    def note(message, category, filename, lineno, file=None, line=None):
-        # called while the syncing op is on the stack: name the port's
-        # innermost frame (or torch's own line when the port has none)
-        if "synchroniz" not in str(message):
-            return
-        ours = [f for f in traceback.extract_stack() if PORT in f.filename]
-        f = ours[-1] if ours else None
-        where = (f"{f.filename[f.filename.rindex(PORT):]}:{f.lineno}"
-                 if f else f"{filename}:{lineno}")
-        sites[where] += 1
-
-    host_syncs.reset()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for g in sync_window:
-                feed(g)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    n_sync = max(len(sync_window), 1)
-
+    n = len(groups)
     events = prof.events()
     spans = [e for e in events if e.name.startswith("lio.")]
     # kineto reports each record_function range twice: as the host range
@@ -190,23 +151,108 @@ def main() -> None:
         kern[name] = {"calls_per_scan": calls / n,
                       "device_us_per_call": (sum(v[0] for v in rows) / calls
                                              if calls else None)}
-    print(card, flush=True)
-    print(json.dumps({
-        "config": args.config, "scans": n, "first_scan": args.warmup,
+    return {
+        "scans": n,
         "wall_ms_per_scan": 1e3 * wall_s / n,
         "device_busy_share": busy_us / (1e6 * wall_s),
         "device_ms_per_scan": dev_us / 1e3 / n,
         "launches_per_scan": len(dev) / n,
         "stages": stages,
         "kernels": kern,
-        "syncs_per_scan": {"scans": len(sync_window),
-                           "port_reads": host_syncs.count / n_sync,
-                           "torch": sum(sites.values()) / n_sync,
-                           "sites": {k: v / n_sync
-                                     for k, v in sites.most_common()}},
         "top_kernels": [{"name": k[:120], "device_ms_per_scan": v[0] / 1e3 / n,
                          "per_scan": v[1] / n} for k, v in top],
-    }), flush=True)
+    }
+
+
+def count_syncs(feed, groups) -> dict:
+    """Feed `groups` unprofiled and count the syncs per scan (`port_reads`,
+    `torch`, `sites` of the module docstring)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.utils.device import host_syncs
+
+    sites: collections.Counter = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # called while the syncing op is on the stack: name the port's
+        # innermost frame (or torch's own line when the port has none)
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack() if PORT in f.filename]
+        f = ours[-1] if ours else None
+        where = (f"{f.filename[f.filename.rindex(PORT):]}:{f.lineno}"
+                 if f else f"{filename}:{lineno}")
+        sites[where] += 1
+
+    host_syncs.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for g in groups:
+                feed(g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = max(len(groups), 1)
+    return {"scans": len(groups), "port_reads": host_syncs.count / n,
+            "torch": sum(sites.values()) / n,
+            "sites": {k: v / n for k, v in sites.most_common()}}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="fused")
+    ap.add_argument("--warmup", type=int, default=40)
+    ap.add_argument("--window", type=int, default=20)
+    args = ap.parse_args()
+
+    import torch
+
+    from better_fastlio2_tpu_torch.io.synthetic import make_bench_sequence
+    from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
+    bench = args.config.startswith("bench_")
+    if bench and args.warmup <= cs.PLANE_CACHE_WARMUP:
+        cs.fail(f"--warmup must pass the {cs.PLANE_CACHE_WARMUP} warmup-"
+                "program scans")
+    card = cs.card_line()
+    groups = make_bench_sequence(
+        "outdoor" if args.config == "bench_outdoor" else "room",
+        args.warmup + args.window + SYNC_SCANS + 1)
+    pipe = LIOPipeline(CONFIGS[args.config]())
+
+    def feed(g):
+        return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                                 g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
+                                 g["scan_end_t"])
+
+    done = 0
+    warm = None
+    if bench:
+        for g in groups[:WARM_PROFILED.start]:
+            feed(g)
+        warm = profile_window(feed, groups[WARM_PROFILED.start:
+                                           WARM_PROFILED.stop])
+        warm["first_scan"] = WARM_PROFILED.start
+        warm["syncs_per_scan"] = count_syncs(
+            feed, groups[WARM_SYNCED.start:WARM_SYNCED.stop])
+        done = WARM_SYNCED.stop
+    for g in groups[done:args.warmup]:
+        feed(g)
+    torch.cuda.synchronize()
+    out = {"config": args.config, "first_scan": args.warmup}
+    out.update(profile_window(
+        feed, groups[args.warmup:args.warmup + args.window]))
+    out["syncs_per_scan"] = count_syncs(
+        feed, groups[args.warmup + args.window:][:SYNC_SCANS])
+    if warm is not None:
+        out["warmup"] = warm
+        out["dmom_built"] = pipe.ls.map.dmom is not None
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
