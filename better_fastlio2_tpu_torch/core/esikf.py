@@ -12,9 +12,10 @@ Cholesky gain), which reduces masked Jacobian rows itself or consumes
 normal equations the measure reduced (the LIO measure, through
 ops/kernels.fused_hth).
 
-The JAX reference runs the iteration as one lax.while_loop on the device;
-here it is a host loop that reads one flag per pass (utils.device.to_host
-counts it).  The reference's `_mm`/`_mv` (tiny products written as
+The JAX reference runs the iteration as one lax.while_loop on the device.
+The Gram path here runs it as max_iter+1 predicated passes with no host
+read; the row path as a host loop that reads one flag per pass
+(utils.device.to_host counts it).  The reference's `_mm`/`_mv` (tiny products written as
 broadcast reduces to stay inside XLA fusions) are plain `@` here.
 """
 
@@ -27,6 +28,7 @@ import torch
 from ..utils import s2 as s2m
 from ..utils import so3
 from ..utils.device import to_host
+from ..utils.tree import tree_where
 from .state import ERR_DIM, NOISE_DIM, State, boxminus, boxplus, oplus_flat
 
 __all__ = ["get_f", "df_dx", "df_dw", "predict_mean", "predict_jacobians",
@@ -156,9 +158,10 @@ class MeasurementOut(NamedTuple):
               gram[:6,:6] = H^T W H, gram[:6,6] = H^T W h, gram[7,7] =
               n_valid; selects the Gram (Woodbury) path.
     aux:      association cache threaded back to the model.
-    early_ok: host bool or None — "a post-convergence re-association
-              would change nothing", letting the update exit on its first
-              converged pass (None keeps reference pass semantics).
+    early_ok: device bool or None (Gram path only) — "a post-convergence
+              re-association would change nothing", letting the update
+              exit on its first converged pass (None keeps reference pass
+              semantics).
     """
 
     h_x: torch.Tensor | None = None
@@ -166,7 +169,7 @@ class MeasurementOut(NamedTuple):
     mask: torch.Tensor | None = None
     aux: object = None
     gram: torch.Tensor | None = None
-    early_ok: bool | None = None
+    early_ok: torch.Tensor | None = None
     neq: tuple | None = None
 
 
@@ -261,10 +264,64 @@ def _rows_T(M, A3, A6, S2b):
     return M
 
 
+def _normal_eqs(m: MeasurementOut, dtype, K: int):
+    """(HTH (K, K), HTh (K,), n_valid ()) of one pass, from whichever form
+    the measure filled."""
+    if m.gram is not None:
+        if K != 6:
+            raise ValueError(f"the Gram path has 6 columns, not {K}")
+        G = m.gram.to(dtype)
+        return G[:K, :K], G[:K, 6], G[7, 7]
+    if m.neq is not None:
+        HTH, HTh, n_valid = (v.to(dtype) for v in m.neq)
+        return HTH, HTh, n_valid
+    w = m.mask.to(dtype)
+    h_x = m.h_x * w[:, None]
+    if h_x.shape[1] != K:
+        raise ValueError(f"h_x has {h_x.shape[1]} columns, n_cols={K}")
+    return h_x.T @ h_x, h_x.T @ (m.h * w), torch.sum(w)
+
+
+def _woodbury_gain(dx, x, x_prop, P_prop, HTH, R: float, K: int):
+    """The Gram path's gain columns (P/R)[:, :K] (I_K + HTH (P/R)[:K,:K])^-1
+    with P = T P_prop T^T, and the transported dx: (dx_new, P_inv12,
+    (A3, A6, S2b)), the last T's blocks for the final covariance."""
+    A3 = so3.A_matrix(dx[3:6]).T
+    A6 = so3.A_matrix(dx[6:9]).T
+    S2b = s2m.s2_nx_yy(x.grav) @ s2m.s2_mx(x_prop.grav, dx[21:23])
+    dx_new = torch.cat([dx[0:3], A3 @ dx[3:6], A6 @ dx[6:9], dx[9:21],
+                        S2b @ dx[21:23]])
+    # C = (T P_prop T^T)[:, :K]: right-apply T's leading K rows, then
+    # left-apply its row blocks
+    C = _rows_T(torch.cat([P_prop[:, 0:3], P_prop[:, 3:6] @ A3.T], dim=1),
+                A3, A6, S2b)
+    P6 = C / R
+    eyeK = _eye(K, P_prop)
+    M6 = eyeK + HTH @ P6[:K]
+    # relative diagonal damping (~1e-6 of the scale): keeps the solve
+    # bounded if P drifts near-indefinite under f32 accumulation
+    M6 = M6 + (1e-6 / K) * torch.sum(torch.abs(torch.diagonal(M6))) * eyeK
+    return dx_new, P6 @ _inv6(M6), (A3, A6, S2b)
+
+
+def _joseph(x, x_prop, P_last, P_inv12, HTH, dx_, R: float, K: int):
+    """Joseph-form final covariance (esekfom.hpp:1841-1931 in Joseph form):
+    P <- (I - K H) P_last (I - K H)^T + R P_inv12 HTH P_inv12^T, then the
+    manifold transport of the final increment."""
+    eyeP = _eye(ERR_DIM, P_last)
+    K_x_last = P_last.new_zeros(ERR_DIM, ERR_DIM)
+    K_x_last[:, :K] = P_inv12 @ HTH
+    T_fin, _ = _dx_transport(dx_, x, x_prop)
+    IKH = eyeP - K_x_last
+    KRK = R * (P_inv12 @ HTH @ P_inv12.T)
+    P_post = T_fin @ (IKH @ P_last @ IKH.T + KRK) @ T_fin.T
+    return 0.5 * (P_post + P_post.T)
+
+
 def update_iterated(
     x_prop: State,
     P_prop: torch.Tensor,
-    measure_fn: Callable[[State, bool, object], MeasurementOut],
+    measure_fn: Callable[[State, object, object], MeasurementOut],
     aux0: object,
     max_iter: int = 4,
     R: float = 0.001,
@@ -278,128 +335,119 @@ def update_iterated(
     max_iter+1 passes, `t` counts converged passes, the loop exits when
     t > 1 or the budget is spent, and the converge flag is forced on the
     penultimate pass; with `early_ok` the loop may exit on the first
-    converged pass.  One device->host read per pass (the converged flag).
+    converged pass.
 
-    The gain path is chosen by what the measure emits, as the reference
-    detects it structurally:
-    * a Gram (`gram`): the Woodbury form (P/R)[:, :K] (I_K + HTH
-      (P/R)[:K,:K])^-1 with the closed-form 6x6 inverse (K = 6);
+    The gain path is chosen by what the measure emits on pass 0, as the
+    reference detects it structurally:
+    * a Gram (`gram`, the fused solve): the Woodbury form (P/R)[:, :K]
+      (I_K + HTH (P/R)[:K,:K])^-1 with the closed-form 6x6 inverse
+      (K = 6), in the reference's lax.while_loop made sync-free: all
+      max_iter+1 passes run, `t`, `conv`, `done` and the pass count are
+      device tensors, and a pass after `done` changes nothing (every
+      carried value is torch.where(done, old, new)).  No host read, so
+      the step can be captured in a CUDA graph;
     * otherwise the row path: normal equations from `neq` or reduced from
       the masked rows, the prior inverse once per scan, and per pass
       A = R (T P_prop T^T)^-1 + HTH in its [:K, :K] block, solved by
-      Cholesky for the K gain columns.
+      Cholesky for the K gain columns.  It keeps a host loop with one
+      read of the converged flag per pass: its measure re-associates (a
+      full 5-NN search) on every converged pass, and predicating that
+      would run the search on every pass.
     The final covariance is the Joseph form, PSD by construction (the
     reference's L - K_x P cancels in f32).
 
-    Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff}.
+    Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff}
+    (device tensors on the Gram path, `iters` and `t` host ints on the
+    row path).
     """
-    dtype = P_prop.dtype
-    K = n_cols
-    eyeP = _eye(ERR_DIM, P_prop)
+    m = measure_fn(x_prop, True, aux0)
+    if m.gram is not None:
+        return _update_gram(x_prop, P_prop, measure_fn, m, max_iter, R,
+                            limit, n_cols)
+    return _update_rows(x_prop, P_prop, measure_fn, m, max_iter, R, limit,
+                        n_cols)
 
-    x, t, conv, aux, i = x_prop, 0, True, aux0, 0
-    A3 = A6 = _eye(3, P_prop)
-    S2b = _eye(2, P_prop)
-    P_inv12 = P_prop.new_zeros(ERR_DIM, K)
-    HTH = P_prop.new_zeros(K, K)
-    dx_ = P_prop.new_zeros(ERR_DIM)
-    n_eff = P_prop.new_zeros(())
-    P = P_prop
-    Pp_inv = None
-    while True:
-        m = measure_fn(x, conv, aux)
-        fused = m.gram is not None
-        if fused:
-            if K != 6:
-                raise ValueError(f"the Gram path has 6 columns, not {K}")
-            G = m.gram.to(dtype)
-            HTH = G[:K, :K]
-            HTh = G[:K, 6]
-            n_valid = G[7, 7]
-        elif m.neq is not None:
-            HTH, HTh, n_valid = (v.to(dtype) for v in m.neq)
-        else:
-            w = m.mask.to(dtype)
-            h_x = m.h_x * w[:, None]
-            if h_x.shape[1] != K:
-                raise ValueError(f"h_x has {h_x.shape[1]} columns, "
-                                 f"n_cols={K}")
-            n_valid = torch.sum(w)
-            HTH = h_x.T @ h_x
-            HTh = h_x.T @ (m.h * w)
 
+def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
+                 limit: float, K: int):
+    """The Gram path of update_iterated, predicated: pass i of the
+    reference's while loop is unrolled pass i here (the pass index is
+    static), and its results are selected in only while `done` is
+    false."""
+    dtype, dev = P_prop.dtype, P_prop.device
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    x, carry = x_prop, None
+    for i in range(max_iter + 1):
+        if i:
+            x, t, conv, aux = carry[:4]
+            m = measure_fn(x, conv, aux)
+        HTH, HTh, n_valid = _normal_eqs(m, dtype, K)
         dx = boxminus(x, x_prop)
         valid = n_valid >= 1.0  # laserMapping.cpp:1956-1961 guard
-        if fused:
-            A3 = so3.A_matrix(dx[3:6]).T
-            A6 = so3.A_matrix(dx[6:9]).T
-            S2b = s2m.s2_nx_yy(x.grav) @ s2m.s2_mx(x_prop.grav, dx[21:23])
-            dx_new = torch.cat([dx[0:3], A3 @ dx[3:6], A6 @ dx[6:9],
-                                dx[9:21], S2b @ dx[21:23]])
-            # C = (T P_prop T^T)[:, :K]: right-apply T's leading K rows,
-            # then left-apply its row blocks
-            C = _rows_T(torch.cat([P_prop[:, 0:3], P_prop[:, 3:6] @ A3.T],
-                                  dim=1), A3, A6, S2b)
-            P6 = C / R
-            eyeK = _eye(K, P_prop)
-            M6 = eyeK + HTH @ P6[:K]
-            # relative diagonal damping (~1e-6 of the scale): keeps the
-            # solve bounded if P drifts near-indefinite under f32
-            # accumulation
-            M6 = M6 + (1e-6 / K) * torch.sum(
-                torch.abs(torch.diagonal(M6))) * eyeK
-            P_inv12 = P6 @ _inv6(M6)
-        else:
-            if Pp_inv is None:
-                # (P_prop/R)^-1 once per scan: per pass P = T P_prop T^T
-                # with block-diagonal T, so (P/R)^-1 = R Ti^T P_prop^-1 Ti
-                P_sym = 0.5 * (P_prop + P_prop.T)
-                Pp_inv = _cho_solve(P_sym + 1e-9 * R * eyeP, eyeP)
-            T, dx_new = _dx_transport(dx, x, x_prop)
-            P = T @ P_prop @ T.T
-            P = 0.5 * (P + P.T)
-            Ti = _transport_inv(T)
-            S_inv = R * (Ti.T @ Pp_inv @ Ti)
-            S_inv = 0.5 * (S_inv + S_inv.T)
-            A = S_inv.clone()
-            A[:K, :K] += HTH
-            # (23, K) = A^-1[:, :K]; A is SPD (S_inv SPD + HTH PSD)
-            P_inv12 = _cho_solve(A, eyeP[:, :K])
-        K_h = P_inv12 @ HTh
-        dx_ = K_h + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
+        dx_new, P_inv12, blocks = _woodbury_gain(dx, x, x_prop, P_prop, HTH,
+                                                 R, K)
+        dx_ = P_inv12 @ HTh + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
+        x_new = tree_where(valid, boxplus(x, dx_), x)
+        converged = torch.all(torch.abs(dx_) < limit) | ~valid
+        t_new = t + converged.to(torch.int32)
+        conv_new = converged | ((t_new == 0) & (i == max_iter - 1))
+        done_new = (t_new > 1) | (i >= max_iter)
+        if m.early_ok is not None:
+            done_new = done_new | (converged & m.early_ok)
+        new = (x_new, t_new, conv_new, m.aux, P_inv12, HTH, dx_,
+               n_valid.to(dtype), *blocks)
+        # pass 0 always runs (done starts false)
+        carry = new if i == 0 else tree_where(done, carry, new)
+        iters = iters + (~done).to(torch.int32)
+        done = done | done_new
+    x, t, _, aux, P_inv12, HTH, dx_, n_eff, A3, A6, S2b = carry
+    # P_last = T P_prop T^T rebuilt from the last executed pass's blocks
+    Pl = _rows_T(P_prop, A3, A6, S2b)
+    P_last = _rows_T(Pl.T, A3, A6, S2b).T
+    P_last = 0.5 * (P_last + P_last.T)
+    P_post = _joseph(x, x_prop, P_last, P_inv12, HTH, dx_, R, K)
+    return x, P_post, aux, {"iters": iters, "t": t, "n_eff": n_eff}
 
-        x = State(*(torch.where(valid, a, b)
-                    for a, b in zip(boxplus(x, dx_), x)))
+
+def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
+                 limit: float, K: int):
+    """The row path of update_iterated: a host loop, one read of the
+    converged flag per pass (utils.device.to_host counts it)."""
+    dtype = P_prop.dtype
+    eyeP = _eye(ERR_DIM, P_prop)
+    # (P_prop/R)^-1 once per scan: per pass P = T P_prop T^T with
+    # block-diagonal T, so (P/R)^-1 = R Ti^T P_prop^-1 Ti
+    P_sym = 0.5 * (P_prop + P_prop.T)
+    Pp_inv = _cho_solve(P_sym + 1e-9 * R * eyeP, eyeP)
+    x, t, i = x_prop, 0, 0
+    while True:
+        if i:
+            m = measure_fn(x, conv, aux)
+        HTH, HTh, n_valid = _normal_eqs(m, dtype, K)
+        dx = boxminus(x, x_prop)
+        valid = n_valid >= 1.0  # laserMapping.cpp:1956-1961 guard
+        T, dx_new = _dx_transport(dx, x, x_prop)
+        P = T @ P_prop @ T.T
+        P = 0.5 * (P + P.T)
+        Ti = _transport_inv(T)
+        S_inv = R * (Ti.T @ Pp_inv @ Ti)
+        S_inv = 0.5 * (S_inv + S_inv.T)
+        A = S_inv.clone()
+        A[:K, :K] += HTH
+        # (23, K) = A^-1[:, :K]; A is SPD (S_inv SPD + HTH PSD)
+        P_inv12 = _cho_solve(A, eyeP[:, :K])
+        dx_ = P_inv12 @ HTh + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
+
+        x = tree_where(valid, boxplus(x, dx_), x)
         converged = bool(to_host(
             torch.all(torch.abs(dx_) < limit) | torch.logical_not(valid)))
-        n_eff = n_valid
         t_new = t + 1 if converged else t
         conv = converged or (t_new == 0 and i == max_iter - 1)
         done = t_new > 1 or i >= max_iter
-        if m.early_ok is not None:
-            done = done or (converged and m.early_ok)
         t, aux, i = t_new, m.aux, i + 1
         if done:
             break
-
-    # Joseph-form final covariance (esekfom.hpp:1841-1931 in Joseph form):
-    #   P <- (I - K H) P_last (I - K H)^T + R P_inv12 HTH P_inv12^T,
-    # then the manifold transport of the final increment.  The Gram path
-    # rebuilds P_last = T P_prop T^T from the last pass's blocks; the row
-    # path carried it.
-    if fused:
-        Pl = _rows_T(P_prop, A3, A6, S2b)
-        P_last = _rows_T(Pl.T, A3, A6, S2b).T
-        P_last = 0.5 * (P_last + P_last.T)
-    else:
-        P_last = P
-    K_x_last = P_prop.new_zeros(ERR_DIM, ERR_DIM)
-    K_x_last[:, :K] = P_inv12 @ HTH
-    T_fin, _ = _dx_transport(dx_, x, x_prop)
-    IKH = eyeP - K_x_last
-    KRK = R * (P_inv12 @ HTH @ P_inv12.T)
-    P_joseph = IKH @ P_last @ IKH.T + KRK
-    P_post = T_fin @ P_joseph @ T_fin.T
-    P_post = 0.5 * (P_post + P_post.T)
-    info = {"iters": i, "t": t, "n_eff": n_eff}
-    return x, P_post, aux, info
+    P_post = _joseph(x, x_prop, P, P_inv12, HTH, dx_, R, K)
+    return x, P_post, aux, {"iters": i, "t": t, "n_eff": n_valid}

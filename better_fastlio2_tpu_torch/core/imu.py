@@ -109,11 +109,17 @@ def propagate(x: State, P: torch.Tensor, batch: ImuBatch, Q: torch.Tensor,
     Returns (state_at_scan_end, P, poses)."""
     M = batch.t.shape[0]
     dtype = batch.acc.dtype
-    g_scale = s2m.GRAVITY / torch.clamp(torch.as_tensor(acc_norm,
-                                                        dtype=dtype), min=1e-6)
+    if not isinstance(acc_norm, torch.Tensor):
+        acc_norm = torch.as_tensor(acc_norm, dtype=dtype,
+                                   device=batch.acc.device)
+    g_scale = s2m.GRAVITY / torch.clamp(acc_norm, min=1e-6)
+    # an f32 batch (the quantized window's IMU rows) against an f64
+    # acc_norm: JAX promotes the scaled rates to f64, torch would keep the
+    # dimensioned operand's f32, so promote explicitly
+    a_dt = torch.promote_types(dtype, g_scale.dtype)
 
     ok = batch.mask[1:] & batch.mask[:-1]
-    acc_all = 0.5 * (batch.acc[:-1] + batch.acc[1:]) * g_scale  # (M-1, 3)
+    acc_all = (0.5 * (batch.acc[:-1] + batch.acc[1:])).to(a_dt) * g_scale
     gyr_all = 0.5 * (batch.gyr[:-1] + batch.gyr[1:])
     t0 = torch.clamp(batch.t[:-1], min=last_scan_end_t)
     zero = batch.t.new_zeros(())
@@ -192,7 +198,8 @@ def propagate(x: State, P: torch.Tensor, batch: ImuBatch, Q: torch.Tensor,
     # final hop to the scan end with the last sample's rates
     last_idx = torch.sum(batch.mask.to(torch.int64)) - 1
     prev_idx = torch.clamp(last_idx - 1, min=0)
-    acc_last = 0.5 * (_take(batch.acc, prev_idx) + _take(batch.acc, last_idx))
+    acc_last = (0.5 * (_take(batch.acc, prev_idx)
+                       + _take(batch.acc, last_idx))).to(a_dt)
     gyr_last = 0.5 * (_take(batch.gyr, prev_idx) + _take(batch.gyr, last_idx))
     dt_tail = torch.clamp(scan_end_t - last_t, min=0.0)
     x_fin, P_fin = predict(x_end, P_end, acc_last * g_scale, gyr_last,
@@ -208,8 +215,11 @@ def undistort(x_end: State, poses: ImuPoses, pts: torch.Tensor,
         p_e = R_il^T ( R_we^T ( R_i (R_il p + t_il) + T_ei ) - t_il )
 
     each point taking its bracketing pose by searchsorted(side="right")."""
+    # compare in the wider of the two types, as jnp.searchsorted promotes
+    # (the quantized window's f32 IMU times against f64 point times)
+    c_dt = torch.promote_types(poses.t.dtype, pt_t.dtype)
     idx = torch.clamp(
-        torch.searchsorted(poses.t, pt_t, right=True) - 1,
+        torch.searchsorted(poses.t.to(c_dt), pt_t.to(c_dt), right=True) - 1,
         0, poses.t.shape[0] - 2)
     dt = torch.clamp(pt_t - poses.t[idx], min=0.0)[:, None]
     rot_h = poses.rot[idx]

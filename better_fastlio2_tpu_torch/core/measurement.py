@@ -11,20 +11,21 @@ or the dense moment table), then one of two solve forms.
   every ESIKF pass reduces it to the normal equations with
   ops/kernels.fused_normal_eqs.  A lazy re-association refreshes, at most
   once per scan, the rows whose voxel moved when more than 5% moved.
-  With solve_compact = B the live lanes go into a (16, B) buffer when they
-  fit, and K1 runs over that instead of all N lanes.
+  With solve_compact = B the live lanes also go into a (16, B) buffer, and
+  the pass takes K1 over that buffer when they fit, K1 over all N lanes
+  otherwise.  The form reads nothing on the host, as the reference's
+  lax.cond sites become device selects: the refresh runs at its fixed
+  size on every pass and its results are selected by the trigger, and
+  both widths of K1 run and the result is selected by `use_c`.
 * The row form: every pass gates the rows (robust s-gate) and reduces
   them to HTH / HTh with ops/kernels.fused_hth, without materialising
   them.  The association reruns on every converged pass (reference
   semantics), or once per scan with the lazy refresh under
-  single_association.
+  single_association.  Its branches stay on the host: the lazy-refresh
+  check reads the moved count (utils.device.to_host).
 
-The reference's lax.cond sites become host branches: each fused solve
-pass reads n_moved (one device->host read), a lazy-refresh check reads
-the moved count, a refresh compacts its rows with torch.nonzero, and with
-solve_compact each association pass reads its live-lane count (whether
-the compacted buffer holds them all).  The moment-plane association
-itself reads nothing on the host when the map has a dense index.
+The moment-plane association itself reads nothing on the host when the
+map has a dense index.
 """
 
 from __future__ import annotations
@@ -37,15 +38,17 @@ import torch
 from torch.profiler import record_function
 
 from ..map import voxel_hash
-from ..ops.kernels import _OK, _VAL, fused_hth, fused_normal_eqs, pack_soa
+from ..ops.kernels import (_OK, _VAL, SOA_CH, fused_hth, fused_normal_eqs,
+                           pack_soa)
 from ..utils import so3
-from ..utils.device import nonzero, nonzero_static, to_host
+from ..utils.device import nonzero_static, to_host
+from ..utils.tree import tree_where
 from .esikf import MeasurementOut
 from .state import State
 
 __all__ = ["plane_fit", "plane_from_moments", "neighborhood_moment_sums",
-           "finalize_plane_from_sums", "MeasureAux", "make_measure_fn",
-           "transform_to_world"]
+           "finalize_plane_from_sums", "MeasureAux", "fused_form",
+           "make_measure_fn", "transform_to_world"]
 
 NUM_MATCH_POINTS = 5  # NN count (common_lib.h NUM_MATCH_POINTS)
 MAX_NN_DIST2 = 5.0  # 5th-NN gate (laserMapping.cpp:1909-1912)
@@ -277,17 +280,19 @@ def plane_from_moments(m: voxel_hash.VoxelHashMap, p_world: torch.Tensor,
 class MeasureAux(NamedTuple):
     """Association cache threaded through the ESIKF passes (the analog of
     Nearest_Points / point_selected_surf, laserMapping.cpp:117,1903-1913).
-    `searched` and `refreshed` are host bools."""
+    `searched` is a host bool (the association pass is pass 0, known
+    statically); `refreshed` and `use_c` are device bools in the fused
+    form, `refreshed` a host bool in the row form."""
 
     normal: torch.Tensor  # (N, 3) plane unit normals (world)
     d: torch.Tensor  # (N,) plane offsets, n·p + d = 0
     fit_ok: torch.Tensor  # (N,) nn_ok & plane residuals within threshold
     searched: bool  # an association pass has run
     assoc_ijk: torch.Tensor  # (N, 3) int32 voxel of each point at assoc
-    refreshed: bool  # the one lazy refresh pass has run
+    refreshed: bool | torch.Tensor  # the one lazy refresh pass has run
     soa: torch.Tensor | None = None  # (16, N) fused-solve buffer
     soa_c: torch.Tensor | None = None  # (16, B) live-lane compacted buffer
-    use_c: bool = False  # soa_c holds every live lane (host bool)
+    use_c: torch.Tensor | None = None  # () bool: soa_c holds every live lane
 
 
 def transform_to_world(s: State, pts_body: torch.Tensor) -> torch.Tensor:
@@ -296,30 +301,52 @@ def transform_to_world(s: State, pts_body: torch.Tensor) -> torch.Tensor:
     return so3.quat_rotate(s.rot, p_imu) + s.pos
 
 
+def _set_rows(a: torch.Tensor, dst: torch.Tensor, rows: torch.Tensor,
+              dim: int = 0) -> torch.Tensor:
+    """a.at[dst].set(rows, mode="drop") along `dim` for distinct in-range
+    targets and fill targets == a.shape[dim]: a copy of `a` with one sink
+    row appended, the rows written, the sink cut off."""
+    sink = a.narrow(dim, 0, 1)
+    out = torch.cat([a, sink], dim=dim)
+    out.index_copy_(dim, dst, rows)
+    return out.narrow(dim, 0, a.shape[dim]).contiguous()
+
+
 def _budgeted_refresh(aux: MeasureAux, p_world, ijk_now, pts_valid,
-                      search_rows, refresh_budget: int, extra_update=None):
-    """Lazy re-association: rows whose voxel moved since the full pass get
-    fresh planes, the first `refresh_budget` of them in ascending index
-    order (deterministic).  The row set is found with torch.nonzero (one
-    device->host read) and keeps its data-dependent length: eager PyTorch
-    needs no fixed shape, so the reference's fill rows (size=budget,
-    fill_value=N, all dropped) are not materialised.
-    `extra_update(aux, sel, n_s, d_s, ok_s)` refreshes the SoA columns in
-    the same pass."""
+                      search_rows, refresh_budget: int, N: int,
+                      extra_update=None):
+    """Lazy re-association at its fixed size (reference :383-406): rows
+    whose voxel moved since the full pass get fresh planes, the first
+    `refresh_budget` of them in ascending index order (deterministic).
+    The row set comes from nonzero_static, padded with the fill index N;
+    the fill rows are searched masked out and written to a sink row, so
+    nothing depends on the data-dependent count and nothing is read on
+    the host.  `extra_update(aux, safe, act, dst, n_s, d_s, ok_s)`
+    refreshes the SoA columns in the same pass.  The caller marks the aux
+    `refreshed` (a host bool in the row form, a device bool in the fused
+    one)."""
     need = (pts_valid & aux.searched
             & torch.any(ijk_now != aux.assoc_ijk, dim=-1))
-    sel = nonzero(need)[:refresh_budget]
-    n_s, d_s, ok_s = search_rows(p_world[sel], torch.ones_like(sel,
-                                                               dtype=bool))
-    normal, d = aux.normal.clone(), aux.d.clone()
-    fit_ok, assoc_ijk = aux.fit_ok.clone(), aux.assoc_ijk.clone()
-    normal[sel], d[sel], fit_ok[sel] = n_s, d_s, ok_s
-    assoc_ijk[sel] = ijk_now[sel]
-    aux = aux._replace(normal=normal, d=d, fit_ok=fit_ok,
-                       assoc_ijk=assoc_ijk, refreshed=True)
+    sel = nonzero_static(need, refresh_budget, N)
+    act = sel < N
+    safe = torch.clamp(sel, max=N - 1)
+    n_s, d_s, ok_s = search_rows(p_world[safe], act)
+    dst = torch.where(act, sel, N)
+    aux = aux._replace(normal=_set_rows(aux.normal, dst, n_s),
+                       d=_set_rows(aux.d, dst, d_s),
+                       fit_ok=_set_rows(aux.fit_ok, dst, ok_s),
+                       assoc_ijk=_set_rows(aux.assoc_ijk, dst, ijk_now[safe]))
     if extra_update is not None:
-        aux = extra_update(aux, sel, n_s, d_s, ok_s)
+        aux = extra_update(aux, safe, act, dst, n_s, d_s, ok_s)
     return aux
+
+
+def fused_form(fused_solve: bool, single_association: bool,
+               extrinsic_est: bool) -> bool:
+    """Whether make_measure_fn takes the fused form: the fused solve needs
+    one association per scan and no extrinsic columns (the reference's
+    lio.py:309-313).  The one place that rule is decided."""
+    return fused_solve and single_association and not extrinsic_est
 
 
 def make_measure_fn(
@@ -352,7 +379,7 @@ def make_measure_fn(
     moments or a dense moment table) instead of 5-NN.
     fused_solve=True with single_association on
     and extrinsic_est off selects the fused form of the module docstring
-    (the one place that rule is decided); early_converge lets it exit on
+    (`fused_form`); early_converge lets it exit on
     the first converged pass when under 5% of the rows changed voxel, and
     solve_compact = B > 0 runs its solve passes over the live lanes
     compacted into (16, B) when they fit.
@@ -372,9 +399,7 @@ def make_measure_fn(
                  & (d2[:, NUM_MATCH_POINTS - 1] <= MAX_NN_DIST2) & rows_valid)
         return plane_fit(nb, nn_ok)
 
-    # the fused solve needs one association per scan and no extrinsic
-    # columns (the reference's lio.py:309-313)
-    if fused_solve and single_association and not extrinsic_est:
+    if fused_form(fused_solve, single_association, extrinsic_est):
         return _make_fused_measure(m, pts_body, pts_valid, search_rows,
                                    refresh_budget,
                                    early_converge=early_converge,
@@ -424,8 +449,9 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
             n_need = int(to_host(torch.sum(need.to(torch.int32))))
             if n_need * 20 > n_val_scan:  # > 5% of valid rows
                 with record_function("lio.refresh"):
-                    aux = _budgeted_refresh(aux, p_world, ijk_now, pts_valid,
-                                            search_rows, refresh_budget)
+                    aux = _budgeted_refresh(
+                        aux, p_world, ijk_now, pts_valid, search_rows,
+                        refresh_budget, N)._replace(refreshed=True)
 
         pd2 = torch.sum(aux.normal * p_world, dim=-1) + aux.d
         srob = 1.0 - 0.9 * torch.abs(pd2) / sqrt_body
@@ -461,22 +487,24 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
 def _make_fused_measure(m, pts_body, pts_valid, search_rows,
                         refresh_budget: int, early_converge: bool = False,
                         solve_compact: int = 0):
-    """The fused-solve measure closure (see make_measure_fn).
+    """The fused-solve measure closure (see make_measure_fn), sync-free
+    (reference :582-746): every lax.cond of the reference is a device
+    select here, so a pass reads nothing on the host.
 
     solve_compact = B (0 < B < N): lanes with fit_ok = 0 or valid = 0 add
-    exactly zero to the Gram in every pass, so when an association pass
-    leaves at most B live lanes they are gathered, ascending, into a
-    zero-filled (16, B) buffer (`soa_c`, `use_c`; one host read of the
-    live count per association pass) and every solve pass runs K1 over
-    it; otherwise the full-width buffer.  As in the reference, n_moved
-    then counts only live lanes, and a dead lane comes back only through
-    the refresh."""
+    exactly zero to the Gram in every pass, so each association pass also
+    gathers the live lanes, ascending, into a zero-filled (16, B) buffer
+    (`soa_c`; all zeros when they do not fit) with `use_c` = "they fit";
+    every solve pass runs K1 over both buffers and selects by `use_c`.  As
+    in the reference, n_moved then counts only live lanes, and a dead lane
+    comes back only through the refresh."""
     N = pts_body.shape[0]
     dtype = pts_body.dtype
+    dev = pts_body.device
     invb = 0.9 / torch.sqrt(torch.clamp(
         torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
     vs = m.voxel_size.to(dtype)
-    n_val_scan = float(to_host(torch.sum(pts_valid.to(dtype))))
+    n_val_scan = torch.sum(pts_valid.to(dtype))
     B = int(solve_compact) if 0 < int(solve_compact) < N else 0
 
     def with_compact(aux):
@@ -484,15 +512,20 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
         if not B:
             return aux
         live = (aux.soa[_OK] > 0) & (aux.soa[_VAL] > 0)
-        if to_host(torch.sum(live.to(torch.int32))) > B:
-            return aux._replace(soa_c=None, use_c=False)
+        use = torch.sum(live.to(torch.int32)) <= B
         idx = nonzero_static(live, B, N)
         cols = aux.soa[:, torch.clamp(idx, max=N - 1)]
-        return aux._replace(soa_c=torch.where((idx < N)[None, :], cols, 0.0),
-                            use_c=True)
+        return aux._replace(
+            soa_c=torch.where((idx < N)[None, :] & use, cols, 0.0),
+            use_c=use)
 
     def solve(aux, params):
-        return fused_normal_eqs(aux.soa_c if aux.use_c else aux.soa, params)
+        if not B:
+            return fused_normal_eqs(aux.soa, params)
+        G_c, mv_c = fused_normal_eqs(aux.soa_c, params)
+        G_f, mv_f = fused_normal_eqs(aux.soa, params)
+        return (torch.where(aux.use_c, G_c, G_f),
+                torch.where(aux.use_c, mv_c, mv_f))
 
     def build_aux(s, aux):
         p_world = transform_to_world(s, pts_body)
@@ -502,57 +535,64 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
         soa = pack_soa(p_imu, n, d, invb, ok, ijk, pts_valid)
         return with_compact(aux._replace(
             normal=n, d=d, fit_ok=ok, searched=True, assoc_ijk=ijk,
-            refreshed=False, soa=soa.contiguous()))
+            refreshed=torch.zeros_like(aux.refreshed),
+            soa=soa.contiguous()))
 
-    def measure(s: State, converged: bool, aux: MeasureAux) -> MeasurementOut:
-        if not aux.searched:
+    def refresh(s, aux):
+        p_world = transform_to_world(s, pts_body)
+        ijk_now = voxel_hash._voxel_of(p_world, m.voxel_size)
+
+        def update_soa(aux, safe, act, dst, n_s, d_s, ok_s):
+            p_imu_s = so3.quat_rotate(s.off_r, pts_body[safe]) + s.off_t
+            cols = pack_soa(p_imu_s, n_s, d_s, invb[safe], ok_s,
+                            ijk_now[safe], pts_valid[safe] & act)
+            # a refreshed row may gain or lose fit_ok: re-derive the
+            # compacted buffer from the patched full one
+            return with_compact(aux._replace(
+                soa=_set_rows(aux.soa, dst, cols, dim=1)))
+
+        return _budgeted_refresh(
+            aux, p_world, ijk_now, pts_valid, search_rows, refresh_budget, N,
+            extra_update=update_soa)._replace(
+                refreshed=torch.ones_like(aux.refreshed))
+
+    def measure(s: State, converged, aux: MeasureAux) -> MeasurementOut:
+        if not aux.searched:  # pass 0, the association pass
             with record_function("lio.associate"):
                 aux = build_aux(s, aux)
         # the pose goes to the kernel as f32 even in f64 runs (the
         # reference rounds R and t there too)
         params = torch.cat([
             so3.quat_to_matrix(s.rot).reshape(-1), s.pos, vs[None],
-            torch.zeros(3, dtype=dtype, device=vs.device),
+            torch.zeros(3, dtype=dtype, device=dev),
         ]).to(torch.float32)
-        G, n_moved_t = solve(aux, params)
-        n_moved = to_host(n_moved_t)
+        G, n_moved = solve(aux, params)
 
-        if (refresh_budget > 0 and converged and not aux.refreshed
-                and n_moved * 20.0 > n_val_scan):
-            p_world = transform_to_world(s, pts_body)
-            ijk_now = voxel_hash._voxel_of(p_world, m.voxel_size)
-
-            def update_soa(aux, sel, n_s, d_s, ok_s):
-                p_imu_s = so3.quat_rotate(s.off_r, pts_body[sel]) + s.off_t
-                cols = pack_soa(p_imu_s, n_s, d_s, invb[sel], ok_s,
-                                ijk_now[sel], pts_valid[sel])
-                soa = aux.soa.clone()
-                soa[:, sel] = cols
-                # a refreshed row may gain or lose fit_ok: re-derive the
-                # compacted buffer from the patched full one
-                return with_compact(aux._replace(soa=soa))
-
+        if refresh_budget > 0:
+            fire = (converged & ~aux.refreshed
+                    & (n_moved * 20.0 > n_val_scan))
             with record_function("lio.refresh"):
-                aux = _budgeted_refresh(aux, p_world, ijk_now, pts_valid,
-                                        search_rows, refresh_budget,
-                                        extra_update=update_soa)
-            # re-solve over the refreshed association
-            G, n_moved_t = solve(aux, params)
-            n_moved = to_host(n_moved_t)
+                aux = tree_where(fire, refresh(s, aux), aux)
+                # re-solve over the refreshed association
+                G_r, mv_r = solve(aux, params)
+            G = torch.where(fire, G_r, G)
+            n_moved = torch.where(fire, mv_r, n_moved)
 
         # re-association would change nothing only when the moved fraction
         # is below the trigger (judged even after the refresh is spent)
         early_ok = n_moved * 20.0 <= n_val_scan if early_converge else None
         return MeasurementOut(gram=G, aux=aux, early_ok=early_ok)
 
+    false = torch.zeros((), dtype=torch.bool, device=dev)
     aux0 = MeasureAux(
         normal=pts_body.new_zeros(N, 3),
         d=pts_body.new_zeros(N),
-        fit_ok=torch.zeros(N, dtype=torch.bool, device=pts_body.device),
+        fit_ok=torch.zeros(N, dtype=torch.bool, device=dev),
         searched=False,
-        assoc_ijk=torch.zeros(N, 3, dtype=torch.int32,
-                              device=pts_body.device),
-        refreshed=False,
-        soa=None,
+        assoc_ijk=torch.zeros(N, 3, dtype=torch.int32, device=dev),
+        refreshed=false,
+        soa=pts_body.new_zeros(SOA_CH, N),
+        soa_c=pts_body.new_zeros(SOA_CH, B) if B else None,
+        use_c=false.clone() if B else None,
     )
     return measure, aux0

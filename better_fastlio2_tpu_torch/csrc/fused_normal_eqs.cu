@@ -283,4 +283,18 @@ int fused_normal_eqs_launch(const float* soa, int stride,
   return (int)(e != cudaSuccess ? e : last);
 }
 
+// The kernel's handles as a captured CUDA graph's kernel nodes may name it:
+// its function in the current context (a CUfunction) and its
+// context-independent kernel (a CUkernel).  Returns a cudaError_t.
+int fused_normal_eqs_handles(void** func, void** kern) {
+  const void* sym = reinterpret_cast<const void*>(neq_cluster_kernel);
+  cudaFunction_t f = nullptr;
+  cudaKernel_t k = nullptr;
+  cudaError_t e = cudaGetFuncBySymbol(&f, sym);
+  if (e == cudaSuccess) e = cudaGetKernel(&k, sym);
+  *func = reinterpret_cast<void*>(f);
+  *kern = reinterpret_cast<void*>(k);
+  return (int)e;
+}
+
 }  // extern "C"

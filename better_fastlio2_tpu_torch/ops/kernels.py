@@ -41,6 +41,7 @@ import torch
 
 __all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs",
            "fused_normal_eqs_reference", "fused_normal_eqs_tolerance",
+           "fused_normal_eqs_handles",
            "fused_hth", "fused_hth_reference", "fused_hth_tolerance"]
 
 SOA_CH = 16
@@ -226,6 +227,24 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
 
 
 fused_normal_eqs.launches = 0
+
+
+def fused_normal_eqs_handles() -> set[int]:
+    """The driver handles of K1's CUDA kernel (its CUfunction in the
+    current context and its CUkernel), by which the kernel nodes of a
+    captured CUDA graph name it (pipeline/graphs.py counts them)."""
+    from . import _build
+
+    _launcher("fused_normal_eqs")
+    fn = _build.load("fused_normal_eqs").fused_normal_eqs_handles
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2
+    fn.restype = ctypes.c_int
+    func, kern = ctypes.c_void_p(), ctypes.c_void_p()
+    err = fn(ctypes.byref(func), ctypes.byref(kern))
+    if err != 0 or not func.value:
+        raise RuntimeError(f"fused_normal_eqs: no kernel handle (CUDA error "
+                           f"{err})")
+    return {h for h in (func.value, kern.value) if h}
 
 
 def _hth_rows(pts_body, p_imu, normals, C, w, extrinsic: bool):

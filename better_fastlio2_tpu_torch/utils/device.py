@@ -2,16 +2,28 @@
 
 Every place where the port reads a device value on the host (a branch the
 JAX reference took with lax.cond / while_loop inside one program) goes
-through `to_host`, so a run can report how many synchronisations a scan
-costs.  Removing them (device predication, CUDA graphs) is later work.
+through `to_host` (or, for a result copied back without waiting,
+`readback_wait`), so a run can report how many synchronisations a scan
+costs.  Both raise while the current CUDA stream is capturing a graph: a
+host read inside a captured step is an error, never a silent count.  The fused-solve programs read nothing (device predication),
+which is what lets pipeline/graphs.py capture the steady step.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_host", "nonzero", "nonzero_static",
-           "host_syncs"]
+__all__ = ["resolve_device", "to_host", "nonzero_static",
+           "host_syncs", "HostReadInCapture", "Readback", "readback_async",
+           "readback_wait"]
+
+
+class HostReadInCapture(RuntimeError):
+    """A device->host read was asked for while a CUDA graph was being
+    captured (the read would end the capture)."""
 
 
 class _SyncCounter:
@@ -42,18 +54,51 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _refuse_in_capture(what: str) -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise HostReadInCapture(
+            f"{what}: a device->host read inside a CUDA graph capture; the "
+            "captured step must be free of host reads")
+
+
 def to_host(t: torch.Tensor):
     """Read a tensor on the host as a Python scalar or (nested) list,
-    counting one synchronisation."""
+    counting one synchronisation.  Raises HostReadInCapture under graph
+    capture."""
+    _refuse_in_capture("to_host")
     host_syncs.count += 1
     return t.item() if t.numel() == 1 and t.dim() == 0 else t.tolist()
 
 
-def nonzero(mask: torch.Tensor) -> torch.Tensor:
-    """Ascending indices of the true entries of a 1-D mask; the result's
-    size is data-dependent, so this counts one synchronisation."""
+class Readback(NamedTuple):
+    """A device->host copy in flight: the host tensor (pinned) and the
+    CUDA event recorded after the copy (None on the CPU)."""
+
+    host: torch.Tensor
+    event: object
+
+
+def readback_async(t: torch.Tensor) -> Readback:
+    """Start reading `t` back without waiting: on CUDA a non-blocking copy
+    into fresh pinned host memory and an event after it on the current
+    stream; a CPU tensor is its own readback."""
+    if t.device.type != "cuda":
+        return Readback(t, None)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return Readback(host, event)
+
+
+def readback_wait(rb: Readback) -> np.ndarray:
+    """Wait for a readback_async copy (one device->host read, counted;
+    raises HostReadInCapture under graph capture) and return its values."""
+    _refuse_in_capture("readback_wait")
     host_syncs.count += 1
-    return torch.nonzero(mask).squeeze(1)
+    if rb.event is not None:
+        rb.event.synchronize()
+    return rb.host.numpy()
 
 
 def nonzero_static(mask: torch.Tensor, size: int,

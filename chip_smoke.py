@@ -55,10 +55,30 @@ Phases (any failure exits non-zero and prints no result line):
                least one compacted, and K1 re-checked on a compacted call
                of the path; bench.py's outdoor gate (end error <= 0.136
                m, ATE <= 0.68 m: 2x and 10x the C++ reference's 0.068 m);
-  9. library_graph — the library calls' device time per call (graph
+  9. bench_room_window — the bench configuration as bench.py:388-389
+               drives it (slice 4): LIOPipeline(pipelined=True, window=8,
+               quantized=True, unroll=8) over the room sequence; the
+               warmup windows eagerly, the steady windows as replays of
+               one CUDA graph of the sync-free steady step (captured at
+               the first steady window) under sync debug mode "error";
+               the room gate; steady ms/scan beside the per-scan phase's;
+               device_ms_per_scan (steady windows replayed back to back,
+               CUDA events, as bench.py:487-520 times the device: the
+               median of 10 groups, on the graph recaptured without the
+               K1 probes, and on the probed one beside it); the graph's
+               nodes and K1 kernel nodes per step (by K1's handle, equal
+               to its calls at capture), the replays counted, and its
+               capture time; port reads and torch syncs per steady
+               window; peak
+               memory with the graph's pool; K1's pass-0 inputs and
+               outputs inside the graph held against the plain version;
+ 10. bench_outdoor_window — the same on the outdoor sequence with
+               window=16 (unroll 8: two replays a window), K1 inside the
+               graph checked at both widths (8192 and 10240);
+ 11. library_graph — the library calls' device time per call (graph
                replay), after the paths so that the cuBLAS workspace of
                the capturing stream does not count in their peak memory;
- 10. one_launch — under torch.profiler, one call of K1 and of K2 in each
+ 12. one_launch — under torch.profiler, one call of K1 and of K2 in each
                mode runs exactly one device kernel (run last, so that the
                profiler cannot touch the timed paths).
 
@@ -86,6 +106,8 @@ WARMUP_SCANS = 20
 PLANE_CACHE_WARMUP = 16  # bench.py's 5-NN warmup scans before the steady program
 SOLVE_COMPACT = 8192  # the outdoor workload's compacted solve width (bench.py)
 CHECK_SCANS = (60, 130, 200)  # scans whose kernel inputs are re-checked
+WINDOW = {"room": 8, "outdoor": 16}  # bench.py:325-328
+CHAIN_WINDOWS, CHAIN_GROUPS = 4, 10  # device timing of the window (bench.py)
 TIMING_RUNS = 100
 GRAPH_CALLS = 100  # calls captured in one CUDA graph for device_us
 GRAPH_REPLAYS = 20
@@ -711,6 +733,224 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
             "peak_bytes": peak, "dmom_built": pipe.ls.map.dmom is not None}
 
 
+def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
+                    per_scan: dict) -> dict:
+    """Drive LIOPipeline as bench.py:388-389 does (pipelined, window W,
+    quantized, unroll min(W, 8)) over `groups` and check it.
+
+    The warmup windows run eagerly; the first steady window warms up on
+    its first graph's worth of scans and captures the steady step as a
+    CUDA graph; every later window is one pinned copy and W / steps graph
+    replays.  The first K1 call of each width in every captured tick
+    (pass 0) also writes its inputs and outputs into probe buffers, made
+    and zeroed by the eager warm-up ticks, through a device select: a
+    replay overwrites them only when its input has a nonzero entry
+    (outdoors a tick whose live lanes overflow the compacted buffer
+    passes zeros; a padded slot passes rows with no valid lane, G = 0).  After the run the probes hold each
+    slot's last such call and are held against the plain version; every
+    width must have at least one (`k1_graph_checks`).  The probes add a
+    few small kernels to each tick of the graph.  The steady windows after the
+    capture run under torch.cuda.set_sync_debug_mode("error"): any sync
+    torch reports raises (the readback waits on a CUDA event, which it
+    does not report), so their torch syncs are 0; their port reads are
+    the readbacks consumed.  K1's launches inside the graph are its kernel
+    nodes (which must match its calls at capture) times the replays
+    StepGraph counts.  Then device_ms_per_scan (chain_device_ms): the
+    median, on the graph with the probes and on the pipeline's graph
+    captured anew without them (the headline)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.core import measurement
+    from better_fastlio2_tpu_torch.ops import kernels
+    from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+    from better_fastlio2_tpu_torch.utils.device import host_syncs
+
+    W = WINDOW[name.split("_")[1]]
+    real = kernels.fused_normal_eqs
+    spare: list[list] = []  # zeroed probe buffers, one per tick and width
+    probes: list[list] = []  # K1 (soa, params, G, mv) of each tick's pass 0
+    seen: set[int] = set()  # widths already met in the current tick
+
+    def spy(soa, params):
+        out = real(soa, params)
+        if pipe.graph is None or soa.shape[1] in seen:
+            return out  # not a steady tick's pass 0
+        seen.add(soa.shape[1])
+        call = (soa, params, *out)
+        if not torch.cuda.is_current_stream_capturing():  # eager warm-up
+            spare.append([torch.zeros_like(t) for t in call])
+            return out
+        bufs = spare.pop(0)
+        live = torch.any(soa != 0)
+        for b, t in zip(bufs, call):
+            b.copy_(torch.where(live, t, b))
+        probes.append(bufs)
+        return out
+
+    t_run = time.perf_counter()
+    pipe = LIOPipeline(cfg, pipelined=True, window=W, quantized=True,
+                       unroll=min(W, 8))
+    tick = pipe._tick  # the steady tick the graph captures
+
+    def probed_tick(*args):
+        seen.clear()
+        return tick(*args)
+
+    pipe._tick = probed_tick
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
+    gt, t_steady, n_steady = [], None, 0
+    measurement.fused_normal_eqs = spy
+    try:
+        for g in groups:
+            if pipe.inited:
+                gt.append(g["gt_pos"])
+            if t_steady is None and pipe.graph is not None and not pipe._wbuf:
+                torch.cuda.synchronize()  # the steady windows start here
+                t_steady, host_syncs.count = time.perf_counter(), 0
+            if t_steady is not None:
+                n_steady += 1
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                pipe.process_scan(
+                    g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
+                    g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        pipe.flush()
+        torch.cuda.synchronize()
+        t_end, reads = time.perf_counter(), host_syncs.count
+    finally:
+        measurement.fused_normal_eqs = real
+    peak = torch.cuda.max_memory_allocated()
+    graph = pipe.graph
+    if graph is None or not n_steady:
+        fail(f"{name}: the steady program was never captured and replayed")
+    launches = {k: getattr(kernels, k).launches for k in KERNELS}
+    if launches["fused_hth"]:
+        fail(f"{name}: the path launched fused_hth: {launches}")
+    # pass 0's K1 calls, refreshed by every replay, against the plain version
+    checks = [compare_k1(*p) for p in probes]
+    if spare or len(checks) != graph.steps * len({c["n"] for c in checks}):
+        fail(f"{name}: {len(checks)} K1 probes ({len(spare)} unused) in a "
+             f"graph of {graph.steps} ticks")
+    by_width = {}
+    for c in checks:
+        b = by_width.setdefault(c["n"], {"calls": 0, "live": 0,
+                                         "max_err_over_tol": 0.0})
+        b["calls"] += 1
+        b["live"] += c["max_abs_G"] > 0
+        b["max_err_over_tol"] = max(b["max_err_over_tol"],
+                                    c["max_err_over_tol"])
+    if not all(b["live"] for b in by_width.values()):
+        fail(f"{name}: a K1 width never ran on live lanes in the graph: "
+             f"{by_width}")
+    traj = np.array(pipe.trajectory)
+    if len(traj) != len(groups) - 1 or not np.all(np.isfinite(traj)):
+        fail(f"{name}: trajectory has {len(traj)} rows or non-finite values")
+    ate, end = accuracy(traj, np.array(gt))
+    if end > gate_end or ate > gate_ate:
+        fail(f"{name} accuracy gate: end error {end:.4f} m (<= {gate_end}),"
+             f" ATE {ate:.4f} m (<= {gate_ate})")
+    steps = graph.steps
+    # K1 inside the graph: its kernel nodes (by K1's function handle), one
+    # for each K1 call the wrapper counted at capture, where nothing ran
+    k1_nodes = graph.nodes["fused_normal_eqs"]
+    k1_captured = graph.captured_launches["fused_normal_eqs"]
+    if k1_nodes != k1_captured:
+        fail(f"{name}: the graph holds {k1_nodes} K1 kernel nodes for "
+             f"{k1_captured} K1 calls at capture")
+    # the graph launches counted in StepGraph.replay, against the capture
+    # window's replays after its warm-up ticks plus every later steady
+    # window's (a flushed partial window counts whole): fewer means a
+    # steady window ran eagerly
+    replays = graph.replays
+    expected = (W - steps) // steps + (-(-n_steady // W)) * (W // steps)
+    if replays != expected:
+        fail(f"{name}: {replays} graph replays, {expected} expected")
+    nodes = graph.nodes
+    capture_s = graph.capture_s
+    probed = chain_device_ms(pipe, groups, W)
+    # the pipeline's own graph, captured anew without the K1 probes
+    del graph
+    pipe._tick, pipe.graph = tick, None
+    device = chain_device_ms(pipe, groups, W)
+    out = {
+        "phase": name, "scans": len(traj), "window": W, "unroll": min(W, 8),
+        "graph_steps": steps, "seconds": time.perf_counter() - t_run,
+        "ms_per_scan_steady": 1e3 * (t_end - t_steady) / n_steady,
+        "ms_per_scan_per_scan_phase": per_scan["ms_per_scan_median"],
+        "device_ms_per_scan": device["median"],
+        "device_ms_per_scan_min": device["min"],
+        "device_ms_groups": device["groups"],
+        "device_ms_per_scan_probed": probed["median"],
+        "device_ms_groups_probed": probed["groups"],
+        "capture_s": capture_s,
+        "capture_s_unprobed": pipe.graph.capture_s,
+        "graph_nodes_per_step": nodes["nodes"] / steps,
+        "graph_kernel_nodes_per_step": nodes["kernel_nodes"] / steps,
+        "graph_kernel_nodes_per_step_unprobed": (
+            pipe.graph.nodes["kernel_nodes"] / steps),
+        "k1_launches_per_steady_scan": k1_nodes / steps,
+        "k1_launches_python": launches["fused_normal_eqs"],
+        # eager calls (the wrapper's count less the capture's calls, which
+        # ran nothing) plus the graph's K1 nodes at every counted replay
+        "k1_launches_executed": (launches["fused_normal_eqs"] - k1_captured
+                                 + k1_nodes * replays),
+        "graph_replays": replays, "steady_scans": n_steady,
+        "port_reads_per_steady_window": reads * W / n_steady,
+        "torch_syncs_per_steady_window": 0,
+        "sync_debug_mode_steady": "error",
+        "max_memory_allocated": peak,
+        "ate_m": ate, "end_err_m": end,
+        "gate": {"end_err_m": gate_end, "ate_m": gate_ate},
+        "k1_graph_checks": by_width,
+        "checks": checks,
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def chain_device_ms(pipe, groups, W) -> dict:
+    """Device milliseconds per scan of the steady graph (bench.py:487-520):
+    CHAIN_WINDOWS distinct windows of the last scans, packed as the
+    pipeline packs them (last_end_rel 0, as bench.py repacks) and put on
+    the device, replayed back to back on the pipeline's final state with
+    CUDA events around each group of them (under sync debug "error");
+    the minimum and the median of CHAIN_GROUPS groups.  A pipeline whose
+    graph is None captures it on the first window (the untimed warm
+    one)."""
+    import torch
+
+    wins = []
+    for c in range(CHAIN_WINDOWS):
+        lo = len(groups) - (CHAIN_WINDOWS - c) * W
+        rows = [pipe._pack_quant(
+            *pipe._pad_points(g["pts"], g["pt_t"]),
+            *pipe._pad_imu(g["imu_acc"], g["imu_gyr"], g["imu_t"]),
+            0.0, float(g["scan_end_t"])) for g in groups[lo:lo + W]]
+        wins.append(pipe._pack_window(rows).to("cuda"))
+    pipe._run_graph(wins[0])  # warm
+    torch.cuda.synchronize()
+    group_ms = []
+    for _ in range(CHAIN_GROUPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.record()
+            for w in wins:
+                pipe._run_graph(w)
+            e.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        e.synchronize()
+        group_ms.append(s.elapsed_time(e) / (CHAIN_WINDOWS * W))
+    return {"min": float(np.min(group_ms)),
+            "median": float(np.median(group_ms)), "groups": group_ms}
+
+
 def accuracy(traj: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
     """ATE and end error as bench.py computes them: displacements from the
     first tracked scan."""
@@ -839,7 +1079,6 @@ def main() -> None:
                       "seconds": time.perf_counter() - t0}), flush=True)
     res = run_main_path(bench_config("outdoor"), outdoor,
                         check_width=SOLVE_COMPACT)
-    del outdoor
     compacted = res["widths"].get(SOLVE_COMPACT, 0)
     if not compacted:
         fail(f"bench_outdoor: no K1 launch ran on the compacted (16, "
@@ -848,12 +1087,24 @@ def main() -> None:
         fail("bench_outdoor: K1 was not re-checked on a compacted call")
     bench_outdoor = summarize("bench_outdoor", res, "fused_normal_eqs",
                               0.136, 0.68, program_warmup=PLANE_CACHE_WARMUP)
+    del res
+    room_w = run_window_path("bench_room_window", bench_config("room"),
+                             groups, 0.030, 0.15, bench_room)
+    outdoor_w = run_window_path("bench_outdoor_window",
+                                bench_config("outdoor"), outdoor, 0.136,
+                                0.68, bench_outdoor)
+    del outdoor
     lib = phase_library_graph()
     phase_one_launch()
     print(json.dumps({"phase": "total",
                       "seconds": time.perf_counter() - t_start}), flush=True)
     k1_err = max(c["max_abs_err"] for c in k1["checks"] + main_out["checks"]
-                 + bench_room["checks"] + bench_outdoor["checks"])
+                 + bench_room["checks"] + bench_outdoor["checks"]
+                 + room_w["checks"] + outdoor_w["checks"])
+    k1_by_phase = {p["phase"]: p["launches_total"] for p in
+                   (main_out, bench_room, bench_outdoor)}
+    k1_by_phase.update({p["phase"]: p["k1_launches_executed"]
+                        for p in (room_w, outdoor_w)})
     k2_err = max(c["max_abs_err"] for c in
                  k2["checks"] + row["checks"] + row_ext["checks"])
     k2_t = k2["timing"]["ext"]
@@ -863,11 +1114,10 @@ def main() -> None:
         "route": "cuda",
         "source": "better_fastlio2_tpu_torch/csrc/fused_normal_eqs.cu",
         "replaces": "better_fastlio2_tpu/ops/pallas_kernels.py:147",
-        "launches": (main_out["launches_total"]
-                     + bench_room["launches_total"]
-                     + bench_outdoor["launches_total"]),
-        "launches_by_phase": {p["phase"]: p["launches_total"] for p in
-                              (main_out, bench_room, bench_outdoor)},
+        # the window phases' launches inside graph replays counted from
+        # the captured graph (the wrapper's count sees only the capture)
+        "launches": sum(k1_by_phase.values()),
+        "launches_by_phase": k1_by_phase,
         "max_abs_err": k1_err,
         "ms": k1["ms"],
         "device_us": k1["device_us"],

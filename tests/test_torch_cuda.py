@@ -43,6 +43,13 @@ with the CPU within the bounds above.  K1 on the compacted (16, B)
 buffer of solve_compact equals K1 on the full buffer within
 fused_normal_eqs_tolerance of the full buffer's inputs (the dead lanes
 add exact zeros).
+
+Window mode (slice 4): the steady windows replayed from the
+captured CUDA graph are bit-identical to the same sync-free ticks run
+eagerly, and over two runs; a steady window and a replay make no sync
+under torch.cuda.set_sync_debug_mode("error"); the graph's K1 kernel
+nodes match K1's calls at capture and its replays are counted; a dead
+pipeline's graph is collected before another capture, never inside it.
 """
 
 import numpy as np
@@ -391,9 +398,9 @@ def _bench_cfg():
     return cfg
 
 
-def _bench_groups():
+def _bench_groups(duration=1.6):
     return make_lio_sequence(
-        duration=1.6, n_points=4000, seed=3, noise=0.004,
+        duration=duration, n_points=4000, seed=3, noise=0.004,
         traj=Trajectory(t_still=0.5, speed=2.0),
         world=SyntheticWorld(seed=0, half_x=12.0, half_y=12.0, height=5.0))
 
@@ -503,3 +510,126 @@ def test_cuda_k1_compacted_matches_full(cuda, n, B):
     _, mv_live = tk.fused_normal_eqs_reference(soa_c, params)
     assert abs(float(mv_c) - float(mv_live)) <= slack
     assert float(mv_c) <= float(mv_f) + slack
+
+
+def _window_run(pipe, groups):
+    for g in groups:
+        pipe.process_scan(*_args(g))
+    pipe.flush()
+    return np.array(pipe.trajectory), pipe.ls.map.dmom.cpu().numpy()
+
+
+def _graph_pipe(**kw):
+    """The bench configuration in window mode as bench.py drives it, at
+    small shapes: W = 4, quantized, pipelined, two ticks per graph."""
+    return LIOPipeline(_bench_cfg(), pipelined=True, window=4,
+                       quantized=True, unroll=2, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_window_matches_eager(cuda):
+    """The steady windows replayed from the captured graph against the
+    same sync-free ticks run eagerly on the card: bit-identical
+    trajectories and moment tables (the graph launches the same kernels
+    on the same inputs).  Warmup 6 at W = 4: windows 1-2 run the warmup
+    program, window 3 warms up on its first two scans and captures, then
+    replays; the last window is a flushed partial one."""
+    groups = _bench_groups()
+    pg, pe = _graph_pipe(), _graph_pipe()
+    pe._graphed = False  # the eager window loop over the same ticks
+    tg, dg = _window_run(pg, groups)
+    te, de = _window_run(pe, groups)
+    assert pg.graph is not None and pe.graph is None
+    assert pg.graph.steps == 2
+    assert pg.graph.nodes["kernel_nodes"] > 0
+    # two ticks of max_iteration + 1 = 4 passes, a solve and a re-solve;
+    # the graph holds one K1 kernel node for each K1 call of the capture
+    k1 = pg.graph.captured_launches["fused_normal_eqs"]
+    assert k1 >= 2 * 4 * 2
+    assert pg.graph.nodes["fused_normal_eqs"] == k1
+    # one replay for the capture window's second half, two for each later
+    # window (the flushed partial one too)
+    n_steady = len(groups) - 1 - 8
+    assert pg.graph.replays == 1 + 2 * (-(-(n_steady - 4) // 4))
+    assert len(tg) == len(groups) - 1
+    np.testing.assert_array_equal(tg, te)
+    np.testing.assert_array_equal(dg, de)
+    err = np.linalg.norm(tg[:, :3] - (np.array(
+        [g["gt_pos"] for g in groups[1:]]) - [0, 0, 1.5]), axis=1)
+    assert np.sqrt(np.mean(err ** 2)) < 0.10
+
+
+@pytest.mark.cuda
+def test_cuda_graph_window_is_deterministic(cuda):
+    groups = _bench_groups()
+    (t1, d1), (t2, d2) = (_window_run(_graph_pipe(), groups)
+                          for _ in range(2))
+    np.testing.assert_array_equal(t1, t2)
+    np.testing.assert_array_equal(d1, d2)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_makes_no_sync(cuda):
+    """After the capture, a steady window (pinned copy, replays, the
+    readback started) and a bare replay run under sync debug mode
+    "error", which raises on any synchronising call; the readback's wait
+    is an event wait, and consuming it under "error" raises nothing
+    either.  A host read inside a capture raises HostReadInCapture."""
+    from better_fastlio2_tpu_torch.utils import device as tdev
+
+    groups = _bench_groups(2.0)
+    p = _graph_pipe(readback_depth=8)
+    for g in groups[:13]:  # init, two warmup windows, the capture window
+        p.process_scan(*_args(g))
+    assert p.graph is not None and not p._wbuf
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in groups[13:17]:  # one steady window
+            p.process_scan(*_args(g))
+        p.graph.replay(p.graph.static_in.clone())
+        assert p.poll() > 0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(tdev.HostReadInCapture):
+        with torch.cuda.graph(g):
+            tdev.to_host(torch.ones(1, device=cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_collects_dead_graphs_first(cuda):
+    """A dead pipeline whose graph only the cyclic collector can free must
+    not be freed inside another pipeline's capture (a graph's destructor
+    there invalidates the capture): the capture collects first and holds
+    the collector while the stream captures."""
+    import gc
+    import weakref
+
+    groups = _bench_groups()
+    dead = _graph_pipe()
+    for g in groups[:13]:  # through the capture window
+        dead.process_scan(*_args(g))
+    assert dead.graph is not None
+    dead.cycle = dead  # only the cyclic collector frees it
+    dead_ref = weakref.ref(dead)
+    del dead
+    p = _graph_pipe()
+    for g in groups[:12]:  # up to the capture window
+        p.process_scan(*_args(g))
+    tick, seen = p._tick, []
+
+    def watched(*args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append((gc.isenabled(), dead_ref() is None))
+        return tick(*args)
+
+    p._tick = watched
+    gc.disable()  # nothing but the capture's own collection frees it
+    try:
+        p.process_scan(*_args(groups[12]))
+    finally:
+        gc.enable()
+    assert p.graph is not None and seen == [(False, True)] * p.graph.steps
+    assert gc.isenabled()

@@ -211,17 +211,25 @@ PORTED_IN_SLICE_3 = {
 }
 
 
-@pytest.mark.parametrize("what", sorted(UNSUPPORTED) + ["window", "mesh"])
+# refused by slices 1-3, ported by slice 4 (window mode): the
+# pipeline options they set
+PORTED_IN_SLICE_4 = {
+    "window": dict(window=2),
+    "pipelined": dict(pipelined=True),
+    "quantized": dict(quantized=True),
+}
+
+
+@pytest.mark.parametrize("what", sorted(UNSUPPORTED) + ["mesh"])
 def test_unsupported_options_raise(what):
     cfg = slice_cfg(tcfg)
     kw = {}
-    if what == "window":
-        kw["window"] = 2
-    elif what == "mesh":
+    if what == "mesh":
         kw["mesh"] = object()
     else:
         UNSUPPORTED[what](cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="item 14" if what == "mesh" else None):
         LIOPipeline(cfg, device="cpu", **kw)
 
 
@@ -269,23 +277,32 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("what", sorted(PORTED_IN_SLICE_2)
-                         + sorted(PORTED_IN_SLICE_3))
+                         + sorted(PORTED_IN_SLICE_3)
+                         + sorted(PORTED_IN_SLICE_4))
 def test_former_refusals_run(what):
     """The options earlier slices refused now construct and run on the CPU:
     IMU init, the map-building scan, then updates whose associations grow
     as the young map fills in (43 valid rows by the fifth scan).  Slice 3's
     run ten scans, so that the plane-cache ones pass their five warmup
     scans and associate by the moment plane (23-145 valid rows; with the
-    claim budget the map grows by at most 64 voxels a scan)."""
+    claim budget the map grows by at most 64 voxels a scan).  Slice 4's
+    pipeline options run five scans and drain the pending results with
+    flush()."""
     cfg = slice_cfg(tcfg)
-    n_scans = 5
+    n_scans, kw = 5, PORTED_IN_SLICE_4.get(what, {})
     if what in PORTED_IN_SLICE_2:
         PORTED_IN_SLICE_2[what](cfg)
-    else:
+    elif what in PORTED_IN_SLICE_3:
         PORTED_IN_SLICE_3[what](cfg)
         n_scans = 10
-    tp = LIOPipeline(cfg, device="cpu")
+    tp = LIOPipeline(cfg, device="cpu", **kw)
+    recs, record = [], tp._record
+    tp._record = lambda v: recs.append(record(v)) or recs[-1]
     outs = [tp.process_scan(*_args(g)) for g in _groups()[:n_scans]]
+    if kw:  # the results come late: every record, in scan order
+        tp.flush()
+        outs = [None] + recs
+        assert len(outs) == n_scans
     assert outs[0] is None and outs[1]["n_eff"] == 0
     assert outs[-1]["n_eff"] > 20 and outs[-1]["map_voxels"] > 8000
     assert np.all(np.isfinite(outs[-1]["pos"]))

@@ -375,8 +375,10 @@ def test_solve_compact_update_parity(budget, expect_compact):
     map_pts, scan = _toy_problem()
     (x_f, P_f, _, i_f), w_f = _torch_update(map_pts, scan, 0)
     (x_c, P_c, aux_c, i_c), w_c = _torch_update(map_pts, scan, budget)
-    assert aux_c.use_c == expect_compact
-    assert set(w_c) == {budget if expect_compact else len(scan)}
+    # the sync-free solve runs K1 at both widths on every pass and selects
+    # the compacted result by the device flag use_c
+    assert bool(aux_c.use_c) == expect_compact
+    assert set(w_c) == {budget, len(scan)}
     assert set(w_f) == {len(scan)}
     assert int(i_c["n_eff"]) == int(i_f["n_eff"]) > 500
     for a, b in ((x_c.pos, x_f.pos), (x_c.rot, x_f.rot), (P_c, P_f)):

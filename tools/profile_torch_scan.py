@@ -3,7 +3,8 @@
 
     python tools/profile_torch_scan.py [--config {fused,row,row_ext,
                                         bench_room,bench_outdoor}]
-                                       [--warmup 40] [--window 20]
+                                       [--warmup 40] [--scans 20]
+                                       [--window W]
 
 Runs one main path of chip_smoke.py (LIOPipeline at the room bench shapes
 on make_bench_sequence("room")): `fused` the single-association fused
@@ -11,16 +12,28 @@ solve (slice 1, K1), `row` the ESIKF row path with the reference
 re-association (K2), `row_ext` the row path with extrinsic estimation,
 `bench_room` / `bench_outdoor` the bench configuration of bench.py (slice
 3, K1; the outdoor one on make_bench_sequence("outdoor")).  It runs
---warmup scans, then records --window steady scans under torch.profiler
+--warmup scans, then records --scans steady scans under torch.profiler
 (CPU and CUDA activities).  The bench configurations first record the
 warmup program apart: scans 3-10 under the profiler and the syncs of
-scans 11-15, all before the steady program starts at scan 17.  Prints the
-card's name and power limit and one JSON line; a bench configuration's
-line holds the fields below for the steady scans and, under `warmup`, for
-the warmup program's:
+scans 11-15, all before the steady program starts at scan 17.
+
+--window W (> 1, bench configurations only, with --scans given) drives
+the pipeline as bench.py does (slice 4: pipelined, window W, quantized, unroll min(W,
+8)): the last warmup window (eager, with the per-stage breakdown) under
+`warmup`, then, after the window that captures the steady step's CUDA
+graph, --scans steady scans (whole windows of graph replays: kernel
+count and device busy share; the replayed kernels carry no lio.* spans)
+and the syncs of two more windows.  `graph` gives the graph's ticks,
+nodes, kernel nodes and capture time.  (--window was once the number of
+profiled scans, now --scans: --window without --scans is refused.)
+
+Prints the card's name and power limit and one JSON line; a bench
+configuration's line holds the fields below for the steady scans and,
+under `warmup`, for the warmup program's:
 
   wall_ms_per_scan        host clock per scan (each scan ends in the info
-                          readback, which waits for the device)
+                          readback, which waits for the device; windows:
+                          the feed of whole windows, then a synchronize)
   device_busy_share       union of the device activity intervals over the
                           window's wall time (1 - idle share)
   device_ms_per_scan      summed device time of every kernel and copy
@@ -36,11 +49,12 @@ the warmup program's:
                           device kernel per call: calls per scan and
                           device microseconds per call
   top_kernels             the 15 largest device-time entries by name
-  syncs_per_scan          over SYNC_SCANS further scans, unprofiled:
-                          `port_reads`, the device->host reads the port
-                          makes through utils.device.to_host; `torch`,
-                          every synchronising call torch itself reports
-                          under torch.cuda.set_sync_debug_mode("warn"); and
+  syncs_per_scan          over SYNC_SCANS further scans (windows: two
+                          windows), unprofiled: `port_reads`, the
+                          device->host reads the port makes through
+                          utils.device; `torch`, every synchronising call
+                          torch itself reports under
+                          torch.cuda.set_sync_debug_mode("warn"); and
                           `sites`, those torch syncs per scan by the line
                           of the port that made them (the innermost frame
                           in better_fastlio2_tpu_torch/), largest first
@@ -176,7 +190,9 @@ def count_syncs(feed, groups) -> dict:
     def note(message, category, filename, lineno, file=None, line=None):
         # called while the syncing op is on the stack: name the port's
         # innermost frame (or torch's own line when the port has none)
-        if "synchroniz" not in str(message):
+        # torch's own warning text (the "prototype feature" warning that
+        # set_sync_debug_mode raises is not a sync)
+        if "called a synchronizing" not in str(message):
             return
         ours = [f for f in traceback.extract_stack() if PORT in f.filename]
         f = ours[-1] if ours else None
@@ -200,12 +216,46 @@ def count_syncs(feed, groups) -> dict:
             "sites": {k: v / n for k, v in sites.most_common()}}
 
 
+def profile_windowed(pipe, feed, groups, scans: int) -> dict:
+    """The --window breakdown of the module docstring."""
+    import torch
+
+    W = pipe.window
+    n_warm = -(-cs.PLANE_CACHE_WARMUP // W)  # warmup windows (rounded up)
+    first = 1 + (n_warm - 1) * W  # the last warmup window's first group
+    for g in groups[:first]:
+        feed(g)
+    warm = profile_window(feed, groups[first:first + W])
+    warm["first_scan"] = first
+    cap_end = first + 2 * W  # the next window captures the graph
+    for g in groups[first + W:cap_end]:
+        feed(g)
+    torch.cuda.synchronize()
+    n = max(1, scans // W) * W
+    out = {"window": W, "first_scan": cap_end}
+    out.update(profile_window(feed, groups[cap_end:cap_end + n]))
+    out["syncs_per_scan"] = count_syncs(
+        feed, groups[cap_end + n:cap_end + n + 2 * W])
+    g = pipe.graph
+    out["graph"] = {"steps": g.steps, "capture_s": g.capture_s, **g.nodes,
+                    "captured_launches": g.captured_launches}
+    out["warmup"] = warm
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), default="fused")
     ap.add_argument("--warmup", type=int, default=40)
-    ap.add_argument("--window", type=int, default=20)
+    ap.add_argument("--scans", type=int, default=None,
+                    help="steady scans profiled (default 20)")
+    ap.add_argument("--window", type=int, default=None,
+                    help="pipeline window W (needs --scans)")
     args = ap.parse_args()
+    if args.window is not None and args.scans is None:
+        cs.fail("--window is the pipeline window W; the number of profiled "
+                "scans, which --window once gave, is now --scans: give both")
+    scans = 20 if args.scans is None else args.scans
 
     import torch
 
@@ -215,20 +265,35 @@ def main() -> None:
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
     bench = args.config.startswith("bench_")
-    if bench and args.warmup <= cs.PLANE_CACHE_WARMUP:
+    W = args.window or 1
+    if W > 1 and not bench:
+        cs.fail("--window drives the bench configurations only")
+    if bench and W == 1 and args.warmup <= cs.PLANE_CACHE_WARMUP:
         cs.fail(f"--warmup must pass the {cs.PLANE_CACHE_WARMUP} warmup-"
                 "program scans")
     card = cs.card_line()
+    n_groups = (args.warmup + scans + SYNC_SCANS + 1 if W == 1 else
+                1 + (-(-cs.PLANE_CACHE_WARMUP // W) + 1) * W
+                + max(1, scans // W) * W + 2 * W)
     groups = make_bench_sequence(
-        "outdoor" if args.config == "bench_outdoor" else "room",
-        args.warmup + args.window + SYNC_SCANS + 1)
-    pipe = LIOPipeline(CONFIGS[args.config]())
+        "outdoor" if args.config == "bench_outdoor" else "room", n_groups)
+    cfg = CONFIGS[args.config]()
+    pipe = (LIOPipeline(cfg) if W == 1 else
+            LIOPipeline(cfg, pipelined=True, window=W, quantized=True,
+                        unroll=min(W, 8)))
 
     def feed(g):
         return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
                                  g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
                                  g["scan_end_t"])
 
+    if W > 1:
+        out = {"config": args.config}
+        out.update(profile_windowed(pipe, feed, groups, scans))
+        out["dmom_built"] = pipe.ls.map.dmom is not None
+        print(card, flush=True)
+        print(json.dumps(out), flush=True)
+        return
     done = 0
     warm = None
     if bench:
@@ -245,9 +310,9 @@ def main() -> None:
     torch.cuda.synchronize()
     out = {"config": args.config, "first_scan": args.warmup}
     out.update(profile_window(
-        feed, groups[args.warmup:args.warmup + args.window]))
+        feed, groups[args.warmup:args.warmup + scans]))
     out["syncs_per_scan"] = count_syncs(
-        feed, groups[args.warmup + args.window:][:SYNC_SCANS])
+        feed, groups[args.warmup + scans:][:SYNC_SCANS])
     if warm is not None:
         out["warmup"] = warm
         out["dmom_built"] = pipe.ls.map.dmom is not None
