@@ -16,6 +16,10 @@ Array names (one flat dict):
     map_voxel_size                          () float
     cube_lo cube_hi cube_init               the FoV box
     last_acc_w last_gyr_b ekf_inited        IMU carry-over and update gate
+
+The back end's state crosses the same way: a pose graph (PoseGraph) and a
+Scan Context database (SCDatabase) as dicts of numpy arrays named by
+their fields, so both implementations can start from one graph.
 """
 
 from __future__ import annotations
@@ -23,11 +27,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .backend.posegraph import PoseGraph
 from .core.state import State
 from .map.voxel_hash import VoxelHashMap
+from .ops.scancontext import SCDatabase
 from .pipeline.lio import LIOState
 
-__all__ = ["STATE_FIELDS", "lio_state_from_numpy", "lio_state_to_numpy"]
+__all__ = ["STATE_FIELDS", "lio_state_from_numpy", "lio_state_to_numpy",
+           "pose_graph_from_numpy", "sc_database_from_numpy",
+           "tuple_to_numpy"]
 
 STATE_FIELDS = State._fields
 
@@ -101,3 +109,40 @@ def lio_state_to_numpy(ls: LIOState) -> dict:
         if t is not None:
             out[name] = a(t)
     return out
+
+
+def _tuple_from_numpy(cls, arrays: dict, device, dtype):
+    """A NamedTuple of tensors from numpy arrays named by its fields:
+    float arrays take `dtype` when given, integers become int32, flags
+    stay bool."""
+    out = {}
+    for name in cls._fields:
+        a = np.asarray(arrays[name])
+        if a.dtype == bool:
+            t = torch.as_tensor(a, device=device)
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.as_tensor(a.astype(np.int32), device=device)
+        else:
+            t = torch.as_tensor(a, device=device)
+            if dtype is not None:
+                t = t.to(dtype)
+        out[name] = t.contiguous()
+    return cls(**out)
+
+
+def pose_graph_from_numpy(arrays: dict, device=None,
+                          dtype: torch.dtype | None = None) -> PoseGraph:
+    """The port's PoseGraph from numpy arrays named by its fields (e.g. a
+    JAX graph's leaves through np.asarray)."""
+    return _tuple_from_numpy(PoseGraph, arrays, device, dtype)
+
+
+def sc_database_from_numpy(arrays: dict, device=None,
+                           dtype: torch.dtype | None = None) -> SCDatabase:
+    """The port's SCDatabase from numpy arrays named by its fields."""
+    return _tuple_from_numpy(SCDatabase, arrays, device, dtype)
+
+
+def tuple_to_numpy(t) -> dict:
+    """A PoseGraph or SCDatabase as numpy arrays named by its fields."""
+    return {k: v.detach().cpu().numpy() for k, v in zip(t._fields, t)}

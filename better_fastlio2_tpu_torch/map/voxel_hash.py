@@ -43,10 +43,12 @@ Translation notes:
   `torch.cummax`.
 * The claim loop and the probe loop are host loops: one device->host read
   per round (utils.device.to_host counts them).
+* `knn_sortjoin`'s `lax.sort` over (key, is_query) with a max-carry
+  `associative_scan` becomes one stable sort of the combined key and a
+  `torch.cummax` over the positions of the map entries.
 
-Not ported yet: `rebuild`, `tombstone_fraction`, `knn_sortjoin` and the
-insert's `claim_only` (the map rebuild), and the SPMD arguments of
-`insert_dense_moments` (multi-device).
+Not ported yet: the SPMD arguments of `insert_dense_moments`
+(multi-device).
 """
 
 from __future__ import annotations
@@ -60,8 +62,8 @@ import torch
 from ..utils.device import nonzero_static, to_host
 
 __all__ = ["VoxelHashMap", "make_map", "insert", "insert_dense_moments",
-           "build_dense_moments", "knn", "crop_outside_box", "num_voxels",
-           "DMOM_CH"]
+           "build_dense_moments", "knn", "knn_sortjoin", "crop_outside_box",
+           "num_voxels", "tombstone_fraction", "rebuild", "DMOM_CH"]
 
 DMOM_CH = 12  # dense-moment row channels (see the module docstring)
 
@@ -135,6 +137,11 @@ def _dense_lookup(dense: torch.Tensor, ijk: torch.Tensor) -> torch.Tensor:
 
 def num_voxels(m: VoxelHashMap) -> torch.Tensor:
     return torch.sum(((m.key & _LIVE_BIT) != 0).to(torch.int32))
+
+
+def tombstone_fraction(m: VoxelHashMap) -> torch.Tensor:
+    """Share of slots holding a tombstone (f32 device scalar)."""
+    return torch.mean((m.key == _KEY_TOMB).to(torch.float32))
 
 
 def _voxel_of(points: torch.Tensor, voxel_size) -> torch.Tensor:
@@ -274,8 +281,8 @@ def _mom_rows(q: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
 def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
            max_probe: int = 16, pre_grouped: bool = False,
            claim_budget: int = 0, dense_budget: int = 0,
-           moments_only: bool = False, mom_cap: int = 0,
-           mom_budget: int = 0) -> VoxelHashMap:
+           moments_only: bool = False, claim_only: bool = False,
+           mom_cap: int = 0, mom_budget: int = 0) -> VoxelHashMap:
     """Insert a batch of world-frame points (`valid` masks rows); updates
     the map's tensors IN PLACE (the reference donates its map buffers the
     same way) and returns the map.
@@ -295,7 +302,9 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
     claim_budget / dense_budget > 0 (pre_grouped, dense-index maps)
     compact the claim loop and the dense-index refresh to the first
     `budget` dense-miss rows in ascending order; the rest retry on the
-    next scan.  moments_only skips the bucket appends.  With moment
+    next scan.  moments_only skips the bucket appends.  claim_only only
+    claims slots (keys and dense rows) for the batch's voxels: no bucket
+    appends, no moments (rebuild's first pass).  With moment
     storage every resolved row adds its corner-relative moment row (also
     rows a full bucket drops); mom_cap > 0 rescales rows past mom_cap
     points back to that weight, or, with mom_budget > 0 and pre_grouped,
@@ -395,7 +404,7 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
     slot_all = torch.where(valid_s, slot_all, -1)
 
     # append into the buckets at base + rank
-    if not moments_only:
+    if not (moments_only or claim_only):
         dest = m.count[torch.clamp(slot_all, min=0)].to(torch.int64) + rank
         ok = (slot_all >= 0) & (dest < B) & valid_s
         flat_pts = m.points.view(C * B, 3)
@@ -403,12 +412,12 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
         m.count.index_add_(0, torch.where(ok, slot_all, 0),
                            ok.to(torch.int32))
         torch.clamp(m.count, max=B, out=m.count)
-    elif m.mom is None:
+    elif moments_only and not claim_only and m.mom is None:
         raise ValueError("a moments_only insert needs moment storage")
 
     # moment accumulation: EVERY resolved row contributes (also rows a
     # full bucket dropped), in voxel-corner-relative coordinates
-    if m.mom is not None:
+    if m.mom is not None and not claim_only:
         mok = (slot_all >= 0) & valid_s
         dt = pts_s.dtype
         if mom_cap > 0 and mom_budget > 0 and pre_grouped:
@@ -661,6 +670,60 @@ def knn(m: VoxelHashMap, queries: torch.Tensor, k: int = 5,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def knn_sortjoin(m: VoxelHashMap, queries: torch.Tensor, k: int = 5,
+                 chunk: int = 32768, n_neighbors: int = 27
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """kNN with the slot lookup as a sort-merge join instead of hash
+    probing (the reference's TPU variant; only tests call it).  The live
+    keys (others padded with INT_MAX) and the queries' neighbourhood keys
+    are sorted together by (key, is_query), stably; each query entry takes
+    the slot of the last map entry before it when that entry's key equals
+    its own.  Same results as `knn` over the full neighbourhood."""
+    B, C = m.bucket, m.capacity
+    dev = queries.device
+    dtype = m.points.dtype
+    BIG = 1e17
+    offs = _neighbor_offsets(n_neighbors, dev)
+    NB = offs.shape[0]
+    live = (m.key & _LIVE_BIT) != 0
+    map_keys = torch.where(live, m.key, _INT_MAX).to(torch.int64)
+    map_slots = torch.arange(C, dtype=torch.int64, device=dev)
+
+    def one_chunk(q):
+        c = q.shape[0]
+        nb = _voxel_of(q, m.voxel_size)[:, None, :] + offs[None, :, :]
+        q_keys = _pack(nb.reshape(-1, 3)).to(torch.int64)
+        nq = q_keys.shape[0]
+        keys = torch.cat([map_keys, q_keys])
+        isq = torch.cat([torch.zeros(C, dtype=torch.int64, device=dev),
+                         torch.ones(nq, dtype=torch.int64, device=dev)])
+        payload = torch.cat([map_slots,
+                             torch.arange(nq, dtype=torch.int64, device=dev)])
+        order = torch.sort(keys * 2 + isq, stable=True).indices
+        skeys, sisq, spay = keys[order], isq[order], payload[order]
+        pos = torch.arange(order.shape[0], device=dev)
+        last_map = torch.cummax(torch.where(sisq == 0, pos, -1), 0).values
+        src = torch.clamp(last_map, min=0)
+        hit = (sisq == 1) & (last_map >= 0) & (skeys[src] == skeys)
+        slot_sorted = torch.where(hit, spay[src], -1)
+        # back to query order; map entries land in the sink row nq
+        out = torch.full((nq + 1,), -1, dtype=torch.int64, device=dev)
+        out.index_put_((torch.where(sisq == 1, spay, nq),), slot_sorted)
+        slots = out[:nq].reshape(c, NB)
+        cand = m.points[torch.clamp(slots, min=0)]  # (c, NB, B, 3)
+        d2 = torch.sum((cand - q[:, None, None, :]) ** 2, dim=-1)
+        d2 = torch.where(slots[..., None] >= 0, d2, BIG)
+        neg_top, top_i = _top_k(-d2.reshape(c, NB * B), k)
+        top_d2 = -neg_top
+        pts = torch.gather(cand.reshape(c, NB * B, 3), 1,
+                           top_i[..., None].expand(c, k, 3))
+        return pts, top_d2.to(dtype), top_d2 < BIG
+
+    outs = [one_chunk(queries[s:s + chunk])
+            for s in range(0, queries.shape[0], chunk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def crop_outside_box(m: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor,
                      enabled: torch.Tensor | None = None,
                      skip_points: bool = False) -> VoxelHashMap:
@@ -690,3 +753,52 @@ def crop_outside_box(m: VoxelHashMap, lo: torch.Tensor, hi: torch.Tensor,
         mom=(torch.where(kill[:, None], 0.0, m.mom)
              if m.mom is not None else None),
     )
+
+
+def rebuild(m: VoxelHashMap, max_probe: int = 16,
+            center=None) -> VoxelHashMap:
+    """Compact the table: re-create every live voxel in a fresh map of the
+    same shapes (the recontructIKdTree analog, laserMapping.cpp:612-669).
+
+    `center` (a world-frame (3,) tensor or array, e.g. the FoV-cube
+    centre) takes each live voxel's coords from its packed key, unwrapped
+    around it, and claims every live voxel first, so that point-less
+    voxels of moments_only inserts survive with their moments; without it
+    the coords come from each bucket's first point.  The stored points are
+    re-inserted (grouped insert), the FULL slot moments are carried over
+    to the new slots, and the dense moment table is kept as it is (it is
+    keyed by torus address and alias tag, not by slot).  Returns a new map
+    of new tensors; `m` is left as it was."""
+    C, B = m.capacity, m.bucket
+    dev = m.key.device
+    live_slot = (m.key & _LIVE_BIT) != 0
+    live = live_slot[:, None] & (torch.arange(B, device=dev)[None, :]
+                                 < m.count[:, None])
+    fresh = make_map(
+        capacity_log2=C.bit_length() - 1, bucket=B, dtype=m.points.dtype,
+        device=dev,
+        dense_log2=(tuple(int(g).bit_length() - 1 for g in m.dense.shape[:3])
+                    if m.dense is not None else None),
+        moments=m.mom is not None)
+    fresh = fresh._replace(voxel_size=m.voxel_size.clone())
+    if center is not None:
+        c = torch.as_tensor(center, dtype=m.points.dtype, device=dev)
+        coords = _unpack_rel(m.key, _voxel_of(c, m.voxel_size))
+        reps = (coords.to(m.points.dtype) + 0.5) * m.voxel_size
+        fresh = insert(fresh, reps, live_slot, max_probe=max_probe,
+                       pre_grouped=True, claim_only=True)
+    else:
+        coords = _voxel_of(m.points[:, 0, :], m.voxel_size)
+    out = insert(fresh, m.points.reshape(C * B, 3), live.reshape(C * B),
+                 max_probe=max_probe)
+    if m.mom is not None:
+        # each surviving voxel's fresh moments become its old row (the
+        # new slots are distinct; the other lanes write a sink row)
+        new_slot = _lookup_slots(out.key, coords, max_probe)
+        ok = live_slot & (new_slot >= 0)
+        mom = torch.cat([out.mom, out.mom.new_zeros(1, out.mom.shape[1])])
+        mom.index_put_((torch.where(ok, new_slot, C),), m.mom)
+        out = out._replace(mom=mom[:C])
+    if m.dmom is not None:
+        out = out._replace(dmom=m.dmom)
+    return out

@@ -16,7 +16,9 @@ PyTorch's idiom, as torch.cuda.graphs documents it:
   the filter state (`ls`): the ticks start from its tensors and the last
   one's state is copied back into them with copy_, so that the replays
   chain.  The map tables the steady program touches (the dense moment
-  table) are updated in place and need no copy;
+  table) are updated in place and need no copy.  A state replaced between
+  windows (a map rebuild or reset, the SLAM back end's pose feedback) is
+  copied into these same tensors (`load_state`);
 * warm-up before capture on the capturing side stream.  The warm-up
   ticks are real scans (the first `steps` of the first steady window),
   run eagerly through the same tick; nothing is run twice and no
@@ -24,7 +26,9 @@ PyTorch's idiom, as torch.cuda.graphs documents it:
 
 Capture failures raise; nothing falls back to eager execution.  The
 cyclic garbage collector is held during capture: freeing another, dead
-graph there would invalidate the capture.
+graph there would invalidate the capture.  The capture's error mode is
+"thread_local": the SLAM back end's worker threads may run torch ops
+while the front end captures.
 """
 
 from __future__ import annotations
@@ -62,6 +66,35 @@ def _clone_tree(a):
     if isinstance(a, torch.Tensor):
         return a.clone()
     return type(a)(*(_clone_tree(x) for x in a))
+
+
+def _leaf_pairs(dst, src, path="ls"):
+    """(dst, src) tensor leaves of two state trees, raising where their
+    structure, shapes or dtypes differ."""
+    if isinstance(dst, torch.Tensor) or isinstance(src, torch.Tensor):
+        if not (isinstance(dst, torch.Tensor) and isinstance(src, torch.Tensor)
+                and dst.shape == src.shape and dst.dtype == src.dtype
+                and dst.device == src.device):
+            raise ValueError(
+                f"state replacement at {path}: the graph holds "
+                f"{_describe(dst)}, the new state {_describe(src)}")
+        return [(dst, src)]
+    if isinstance(dst, tuple) and isinstance(src, tuple):
+        if len(dst) != len(src):
+            raise ValueError(f"state replacement at {path}: structure differs")
+        names = getattr(dst, "_fields", range(len(dst)))
+        return [p for n, d, s in zip(names, dst, src)
+                for p in _leaf_pairs(d, s, f"{path}.{n}")]
+    if dst is None and src is None:
+        return []
+    raise ValueError(f"state replacement at {path}: the graph holds "
+                     f"{_describe(dst)}, the new state {_describe(src)}")
+
+
+def _describe(a) -> str:
+    if isinstance(a, torch.Tensor):
+        return f"{tuple(a.shape)} {a.dtype} on {a.device}"
+    return repr(a)
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -161,7 +194,8 @@ class StepGraph:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 out, infos_g = self._run(self.ls, self.static_in)
                 self.static_info.copy_(infos_g)
                 for dst, src in zip(tree_tensors(self.ls), tree_tensors(out)):
@@ -178,6 +212,18 @@ class StepGraph:
         self.graph = graph
         self.nodes = _node_counts(graph)
         return self.ls, infos
+
+    def load_state(self, ls) -> None:
+        """Copy every tensor leaf of the state `ls` into the graph's own
+        (the static leaves and the map tables the kernels read by
+        address) on the current stream, where the next replay runs.
+        Shapes are fixed by the configuration; a mismatch raises.  Leaves
+        that already are the graph's tensors are left alone."""
+        pairs = _leaf_pairs(self.ls, ls)
+        with torch.no_grad():
+            for dst, src in pairs:
+                if dst is not src:
+                    dst.copy_(src)
 
     def replay(self, rows: torch.Tensor) -> torch.Tensor:
         """The ticks of `rows` ((steps, R) packed, on the device): one

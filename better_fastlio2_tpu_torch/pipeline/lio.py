@@ -21,9 +21,17 @@ the counterpart of the reference's window program.
 Ported: the fused single-association solve (slice 1), the ESIKF row path
 (slice 2), the bench configuration (slice 3: the plane cache with its
 5-NN warmup program, the budgeted moment inserts, mom_dense, the
-compacted solve) and the windowed, pipelined, quantized mode (slice 4).
-The map rebuild, feature extraction and mesh mode raise
+compacted solve), the windowed, pipelined, quantized mode (slice 4) and
+the map rebuild at the kd_step cadence with the map reset after a loop
+correction (slice 5).  Feature extraction and mesh mode raise
 NotImplementedError naming the work that brings them.
+
+The filter state is replaced between scans in one way, the `ls`
+property's setter: the rebuild, the map reset and the SLAM back end's
+pose feedback and rollback all go through it.  Once the steady step runs
+as a captured CUDA graph, the setter copies the new state into the
+graph's own tensors (the graph reads them by address), so the next
+replay starts from it.
 """
 
 from __future__ import annotations
@@ -73,10 +81,7 @@ class LIOState(NamedTuple):
 def check_config(cfg: LIOConfig) -> None:
     """Raise NotImplementedError for every option the port does not carry
     yet, naming the later slice that brings it."""
-    kd = cfg.ikdtree
     checks = [
-        (kd.recontruct_kdtree, "ikdtree.recontruct_kdtree",
-         "a later slice (map rebuild)"),
         (cfg.preprocess.feature_extract_enable,
          "preprocess.feature_extract_enable", "the host I/O slice"),
         (cfg.dtype not in _DTYPES, f"dtype {cfg.dtype!r}", "no slice"),
@@ -581,7 +586,7 @@ class LIOPipeline:
         self.inited = False
         self.acc_norm = 9.81
         self._acc_t: torch.Tensor | None = None  # window mode's acc_norm
-        self.ls: LIOState | None = None
+        self._ls: LIOState | None = None
         self.last_scan_end_abs: float | None = None  # f64 host clock
         self.trajectory: list[np.ndarray] = []
         self._pending_info = None  # per-scan pipelined readback
@@ -589,6 +594,26 @@ class LIOPipeline:
         self._pending_ws: list[tuple] = []  # [(readback, n_valid)]
         self._results: list[dict] = []  # completed per-scan dicts (FIFO)
         self._scans_dispatched = 0
+
+    @property
+    def ls(self) -> LIOState | None:
+        """The filter state (device tensors)."""
+        return self._ls
+
+    @ls.setter
+    def ls(self, new: LIOState | None) -> None:
+        """Replace the filter state.  Once a steady-step graph is captured
+        its kernels read the state and the map tables by address: every
+        tensor leaf of `new` is copied into the graph's own (on the current
+        stream, ahead of the next replay) and `ls` stays the graph's.  A
+        state of another structure or shape raises; nothing falls back to
+        eager execution.  Scans already buffered for the open window run
+        from the new state, as in the reference's window dispatch."""
+        if (self.graph is not None and new is not None
+                and new is not self.graph.ls):
+            self.graph.load_state(new)
+            new = self.graph.ls
+        self._ls = new
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype or self.dtype,
@@ -610,6 +635,42 @@ class LIOPipeline:
         return LIOState(x=x, P=P, map=m, cube_lo=z3(), cube_hi=z3(),
                         cube_init=false, last_acc_w=z3(), last_gyr_b=z3(),
                         ekf_inited=false.clone())
+
+    def reset_map_from_world_points(self, world_pts: np.ndarray) -> None:
+        """Rebuild the local map from corrected world-frame points (the
+        recontructIKdTree-after-correctPoses analog, laserMapping.cpp:
+        797-800): after a loop-closure pose jump the old map lies in the
+        drifted odometry frame.  Inserts the points in n_ds chunks into a
+        fresh map, rebuilds the dense moment table from it when the steady
+        program has one, and re-centres the FoV cube on the corrected
+        lidar position."""
+        sh = self.cfg.shapes
+        m = voxel_hash.make_map(
+            capacity_log2=sh.map_capacity_log2, bucket=sh.map_bucket,
+            voxel_size=self.cfg.ikdtree.filter_size_map_min,
+            dtype=self.dtype, device=self.device,
+            dense_log2=sh.map_dense_log2,
+            moments=self.ls.map.mom is not None)
+        chunk = sh.n_ds
+        world_pts = np.asarray(world_pts, np.float32)
+        for i in range(0, len(world_pts), chunk):
+            blk = world_pts[i:i + chunk]
+            buf = np.zeros((chunk, 3), np.float32)
+            buf[:len(blk)] = blk
+            valid = np.zeros(chunk, bool)
+            valid[:len(blk)] = True
+            m = voxel_hash.insert(m, self._t(buf), self._t(valid, torch.bool),
+                                  max_probe=sh.map_max_probe)
+        ls = self.ls
+        # the reference widens the lidar position to f64 on the host
+        pos_lid = (ls.x.pos + so3.quat_rotate(ls.x.rot, ls.x.off_t)).double()
+        half = self.cfg.mapping.cube_len / 2.0
+        if ls.map.dmom is not None:
+            m = m._replace(dmom=voxel_hash.build_dense_moments(m, pos_lid))
+        self.ls = ls._replace(
+            map=m, cube_lo=(pos_lid - half).to(self.dtype),
+            cube_hi=(pos_lid + half).to(self.dtype),
+            cube_init=torch.ones_like(ls.cube_init))
 
     def _ensure_dmom(self) -> None:
         """The warmup->steady handoff of the dense-moment program: build
@@ -675,6 +736,18 @@ class LIOPipeline:
         P, T, V = self._pad_points(pts, pt_t)
         A, G, Tt, Mk = self._pad_imu(imu_acc, imu_gyr, imu_t)
         self._scan_count += 1
+        # periodic map compaction (recontructIKdTree, laserMapping.cpp:
+        # 612-669): rebuild when the tombstones left by FoV crops pass a
+        # tenth of the table, at the kd_step cadence
+        kd = self.cfg.ikdtree
+        if (kd.recontruct_kdtree
+                and self._scan_count % max(kd.kd_step, 1) == 0
+                and to_host(voxel_hash.tombstone_fraction(self.ls.map)) > 0.1):
+            # the cube centre keys the coord unwrap, so point-less
+            # (moments_only) voxels survive with their moments
+            center = (self.ls.cube_lo + self.ls.cube_hi) * 0.5
+            self.ls = self.ls._replace(
+                map=voxel_hash.rebuild(self.ls.map, center=center))
         # f64 host clock: only relative times reach the device
         last_end_rel = (self.last_scan_end_abs - scan_beg_abs
                         if self.last_scan_end_abs is not None else 0.0)

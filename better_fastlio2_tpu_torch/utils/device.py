@@ -11,6 +11,7 @@ which is what lets pipeline/graphs.py capture the steady step.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -26,8 +27,10 @@ class HostReadInCapture(RuntimeError):
     captured (the read would end the capture)."""
 
 
-class _SyncCounter:
-    """Plain integer count of device->host reads made through to_host."""
+class _SyncCounter(threading.local):
+    """Integer count of the device->host reads made through to_host, one
+    count per thread (the SLAM back end's worker threads keep their own,
+    so the front end's count is the feed thread's alone)."""
 
     def __init__(self):
         self.count = 0

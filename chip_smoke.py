@@ -75,12 +75,37 @@ Phases (any failure exits non-zero and prints no result line):
  10. bench_outdoor_window — the same on the outdoor sequence with
                window=16 (unroll 8: two replays a window), K1 inside the
                graph checked at both widths (8192 and 10240);
- 11. library_graph — the library calls' device time per call (graph
+ 11. slam    — bench.py --slam (slice 5) through SLAMPipeline: the room
+               bench configuration in the window driver of phase 9 with
+               keyframes, loop closure and the pose-graph back end on the
+               host CPU (async back end, loop worker thread) over bench.py's
+               240-scan loop-closing outdoor circle; bench.py's gates (a
+               loop closed, corrected keyframe ATE <= max(0.25 m, odometry
+               keyframe ATE)); steady ms/scan beside bench_room_window's,
+               port reads and torch syncs (sync debug "warn") per steady
+               window, K1 launches in the graph, the corrections that
+               reached the captured graph, peak memory, and the back end's
+               host ms for one descriptor, one loop verification (SC gate
+               + ICP) and one optimize(6, 50);
+ 12. backend_cuda — the back end on the card on the slam phase's
+               keyframes (descriptors, a loop verification, optimize): two
+               runs bit-identical in f32; in f64 equal to the CPU port
+               (descriptors exactly, ICP 1e-8, poses 1e-9);
+ 13. slam_handoff — on the room sequence, a +1 m correction forced
+               through _apply_correction once the graph is captured and
+               replayed: the pose feedback and map reset reach the graph
+               (the map holds the shifted keyframe cloud, the replays go
+               on), the trajectory equals an all-eager run bit for bit, and
+               the next window follows the shifted frame;
+ 14. library_graph — the library calls' device time per call (graph
                replay), after the paths so that the cuBLAS workspace of
                the capturing stream does not count in their peak memory;
- 12. one_launch — under torch.profiler, one call of K1 and of K2 in each
+ 15. one_launch — under torch.profiler, one call of K1 and of K2 in each
                mode runs exactly one device kernel (run last, so that the
                profiler cannot touch the timed paths).
+
+`python chip_smoke.py --only-slam` runs the build and phases 11-13 alone
+and prints no result line (a development run).
 
 Output: one line per phase, the card's name and power limit, one
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}.  Needs a
@@ -1040,6 +1065,438 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
     return out
 
 
+# bench.py --slam (bench.py:333-383): the room bench shapes with the loop
+# gates of :359-363 on the loop-closing outdoor circle
+SLAM_WINDOW = 8
+SLAM_HANDOFF_SCANS = 41  # init + 5 windows: the graph captured and replayed
+SLAM_TIMING_RUNS = 3
+
+
+def slam_config():
+    """bench.py --slam's configuration: bench_config("room") with loop
+    closure on (radius 5 m, time gap 10 s, fitness 0.6) and a keyframe
+    every metre."""
+    cfg = bench_config("room")
+    cfg.loop.enable = True
+    cfg.loop.search_radius = 5.0
+    cfg.loop.search_time_diff = 10.0
+    cfg.loop.fitness_score = 0.6
+    cfg.mapping.keyframe_adding_dist_threshold = 1.0
+    return cfg
+
+
+def slam_sequence():
+    """bench.py --slam's 240 scans: a 7.5 m circle at 3 m/s in the outdoor
+    world, 8000 returns a scan at 3 cm noise with a gyro bias walk."""
+    from better_fastlio2_tpu_torch.io.synthetic import (OutdoorWorld,
+                                                        Trajectory,
+                                                        make_lio_sequence)
+
+    return list(make_lio_sequence(
+        duration=N_SCANS / 10.0, scan_rate=10.0, imu_rate=100.0,
+        n_points=8000, seed=7, noise=0.03, gyr_bias_walk=2e-4,
+        traj=Trajectory(t_still=0.7, speed=3.0, yaw_rate=0.4),
+        world=OutdoorWorld(seed=7)))
+
+
+def keyframe_ate(pipe, groups) -> tuple[float, float]:
+    """Keyframe ATE of the odometry poses and of the corrected poses
+    against ground truth, as bench.py:441-468 computes them."""
+    t2gt = {round(g["scan_beg_abs"] + g["scan_end_t"], 6): g["gt_pos"]
+            for g in groups}
+    gt, odom, corr = [], [], []
+    for kf in pipe.keyframes:
+        g = t2gt.get(round(kf.t, 6))
+        if g is not None:
+            gt.append(g)
+            odom.append(kf.odom_pose[4:7])
+            corr.append(kf.pose[4:7])
+    gt = np.asarray(gt) - gt[0]
+    odom = np.asarray(odom) - odom[0]
+    corr = np.asarray(corr) - corr[0]
+    return (float(np.sqrt(np.mean(np.sum((odom - gt) ** 2, axis=1)))),
+            float(np.sqrt(np.mean(np.sum((corr - gt) ** 2, axis=1)))))
+
+
+def loop_verify(pipe, cur_idx: int, cand: int, device, dtype):
+    """One loop verification of keyframe cur_idx against cand as the SLAM
+    back end makes it (its submaps, the Scan Context gate on f32
+    descriptors, point-to-plane ICP from the relative estimate), on
+    `device` in `dtype`: (sc distance, shift, ICP pose, fitness)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.ops import icp, scancontext as sc
+    from better_fastlio2_tpu_torch.utils import se3, so3
+
+    kf, kc = pipe.keyframes[cur_idx], pipe.keyframes[cand]
+    cur, cv = pipe._pad_fix(pipe._submap(cur_idx, 0, kf.pose), pipe._CUR_PAD)
+    old, ov = pipe._pad_fix(pipe._submap(cand, pipe.cfg.loop.search_num,
+                                         kc.pose), pipe._OLD_PAD)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    b, f32 = torch.bool, torch.float32
+    dist, shift = sc.sc_distance(
+        sc.make_descriptor(t(cur, f32), t(cv, b), pipe.sc_params),
+        sc.make_descriptor(t(old, f32), t(ov, b), pipe.sc_params))
+    yaw0 = -float(shift) * 2.0 * np.pi / pipe.sc_params.num_sector
+    rel = se3.between(t(kc.pose), t(kf.pose))
+    init = se3.compose(se3.make(so3.quat_exp(t([0.0, 0.0, yaw0])),
+                                t(np.zeros(3))), rel)
+    res = icp.icp_point2plane(t(cur), t(cv, b), t(old), t(ov, b),
+                              init if abs(yaw0) > 0.3 else rel,
+                              max_corr=10.0, iters=25, voxel=1.0)
+    return dist, shift, res.pose, res.fitness
+
+
+def host_ms(fn, runs: int = SLAM_TIMING_RUNS) -> float:
+    """Median wall milliseconds of `fn` on the host (after one warm call)."""
+    fn()
+    ts = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def phase_slam(groups, room_window_ms: float | None) -> tuple[dict, object]:
+    """bench.py --slam on the port (SLAMPipeline, async back end on the
+    host, the window driver of bench_room_window): the steady windows'
+    wall, port reads and torch syncs (sync debug mode "warn": the map
+    resets after a correction read the device in the insert's claim
+    loop), the graph's replays and K1 kernel nodes, the corrections and
+    map resets that reached the captured graph, bench.py's gates (a loop
+    closed; corrected keyframe ATE <= max(0.25 m, odometry keyframe ATE))
+    and the back end's host times.  Returns (line, pipeline)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.backend import posegraph as pgm
+    from better_fastlio2_tpu_torch.ops import kernels, scancontext as sc
+    from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
+    from better_fastlio2_tpu_torch.utils.device import host_syncs
+
+    t_run = time.perf_counter()
+    pipe = SLAMPipeline(slam_config(), async_backend=True,
+                        backend_on_host=True,
+                        lio_kwargs=dict(window=SLAM_WINDOW, quantized=True,
+                                        unroll=SLAM_WINDOW))
+    lio = pipe.lio
+    resets, corrections = [], []
+    reset, correct = lio.reset_map_from_world_points, pipe._apply_correction
+
+    def counted_reset(pts):
+        resets.append((lio.graph is not None, len(pts)))
+        return reset(pts)
+
+    def counted_correction(poses, n=None):
+        corrections.append(lio.graph is not None)
+        return correct(poses, n)
+
+    lio.reset_map_from_world_points = counted_reset
+    pipe._apply_correction = counted_correction
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
+    graph, t_steady, n_steady, n_torch = None, None, 0, 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for g in groups:
+            if t_steady is None and lio.graph is not None and not lio._wbuf:
+                torch.cuda.synchronize()  # the steady windows start here
+                t_steady, host_syncs.count = time.perf_counter(), 0
+                graph, w0 = lio.graph, len(caught)
+            if t_steady is not None:
+                n_steady += 1
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                                  g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
+                                  g["scan_end_t"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t_end, reads = time.perf_counter(), host_syncs.count
+        if graph is not None:
+            n_torch = sum("synchroniz" in str(w.message)
+                          for w in caught[w0:])
+    pipe.flush()
+    torch.cuda.synchronize()
+    pipe.close()
+    peak = torch.cuda.max_memory_allocated()
+    if graph is None or lio.graph is not graph:
+        fail("slam: the steady program was not captured once and kept")
+    launches = {k: getattr(kernels, k).launches for k in KERNELS}
+    if launches["fused_hth"]:
+        fail(f"slam: the path launched fused_hth: {launches}")
+    k1_nodes = graph.nodes["fused_normal_eqs"]
+    k1_captured = graph.captured_launches["fused_normal_eqs"]
+    if k1_nodes != k1_captured or not k1_nodes:
+        fail(f"slam: {k1_nodes} K1 kernel nodes for {k1_captured} K1 calls "
+             "at capture")
+    W, steps = SLAM_WINDOW, graph.steps
+    expected = (W - steps) // steps + (-(-n_steady // W)) * (W // steps)
+    if graph.replays != expected:
+        fail(f"slam: {graph.replays} graph replays, {expected} expected")
+    traj = np.array(lio.trajectory)
+    if len(traj) != len(groups) - 1 or not np.all(np.isfinite(traj)):
+        fail(f"slam: trajectory has {len(traj)} rows or non-finite values")
+    if not pipe.loop_pairs:
+        fail("slam: no loop closure fired")
+    ate_odom, ate_corr = keyframe_ate(pipe, groups)
+    if not np.isfinite(ate_corr) or ate_corr > max(0.25, ate_odom):
+        fail(f"slam: corrected keyframe ATE {ate_corr:.4f} m worse than "
+             f"max(0.25, odometry keyframe ATE {ate_odom:.4f} m)")
+    if not any(corrections):
+        fail("slam: no correction was applied while the graph held the "
+             "state")
+    # the back end's host times, on the run's own keyframes and graph
+    kf = pipe.keyframes[len(pipe.keyframes) // 2]
+    buf, vm = pipe._pad_fix(kf.cloud, pipe._CUR_PAD)
+    bt, bv = torch.as_tensor(buf), torch.as_tensor(vm)
+    i, j, _ = pipe.loop_pairs[0]
+    cpu = torch.device("cpu")
+    out = {
+        "phase": "slam", "scans": len(groups), "window": W,
+        "unroll": SLAM_WINDOW, "graph_steps": steps,
+        "seconds": time.perf_counter() - t_run,
+        "n_keyframes": len(pipe.keyframes),
+        "n_loops": len(pipe.loop_pairs),
+        "loop_pairs": [[a, b, f] for a, b, f in pipe.loop_pairs],
+        "ate_odom_keyframes_m": ate_odom,
+        "ate_corrected_keyframes_m": ate_corr,
+        "gate": {"n_loops": 1, "ate_corrected_keyframes_m":
+                 max(0.25, ate_odom)},
+        "ms_per_scan_steady": 1e3 * (t_end - t_steady) / n_steady,
+        "ms_per_scan_steady_bench_room_window": room_window_ms,
+        "steady_scans": n_steady,
+        "port_reads_per_steady_window": reads * W / n_steady,
+        "torch_syncs_per_steady_window": n_torch * W / n_steady,
+        "sync_debug_mode_steady": "warn",
+        "graph_replays": graph.replays,
+        "k1_launches_per_steady_scan": k1_nodes / steps,
+        "k1_launches_executed": (launches["fused_normal_eqs"] - k1_captured
+                                 + k1_nodes * graph.replays),
+        "corrections": len(corrections),
+        "corrections_under_graph": sum(corrections),
+        "map_resets": len(resets),
+        "map_resets_under_graph": sum(r[0] for r in resets),
+        "max_memory_allocated": peak,
+        "backend_device": str(pipe.backend_device),
+        "backend_host_threads": torch.get_num_threads(),
+        "backend_host_ms": {
+            "descriptor": host_ms(lambda: sc.make_descriptor(
+                bt, bv, pipe.sc_params)),
+            "loop_verification": host_ms(lambda: loop_verify(
+                pipe, j, i, cpu, torch.float32)),
+            "optimize_6x50": host_ms(lambda: pgm.optimize(
+                pipe.graph, iters=6, cg_iters=50)),
+        },
+    }
+    print(json.dumps(out), flush=True)
+    return out, pipe
+
+
+def handoff_run(groups, graphed: bool) -> dict:
+    """SLAMPipeline over the room sequence in the window driver (the graph
+    captured and replayed, or every window eager), a +1 m x correction
+    forced through _apply_correction after SLAM_HANDOFF_SCANS scans (as
+    tests/test_slam_backend.py:175-236 forces it), then one more window."""
+    import torch
+
+    from better_fastlio2_tpu_torch.map import voxel_hash
+    from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
+    from better_fastlio2_tpu_torch.utils import so3
+
+    cfg = bench_config("room")
+    cfg.loop.enable = False
+    cfg.mapping.keyframe_adding_dist_threshold = 1.0
+    pipe = SLAMPipeline(cfg, lio_kwargs=dict(window=SLAM_WINDOW,
+                                             quantized=True,
+                                             unroll=SLAM_WINDOW))
+    lio = pipe.lio
+    lio._graphed = graphed
+
+    def feed(gs):
+        for g in gs:
+            pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                              g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
+                              g["scan_end_t"])
+
+    feed(groups[:SLAM_HANDOFF_SCANS])
+    graph = lio.graph
+    if lio._wbuf or (graphed and (graph is None or graph.replays == 0)):
+        fail("slam_handoff: the graph was not captured and replayed before "
+             "the correction")
+    n_rep, pos0 = graph.replays if graphed else 0, lio.ls.x.pos.clone()
+    poses = np.stack([kf.pose for kf in pipe.keyframes]).astype(np.float64)
+    poses[:, 4] += 1.0
+    n_kf = len(pipe.keyframes)
+    pipe._apply_correction(poses, n=len(pipe.keyframes))
+    torch.cuda.synchronize()
+    moved = float((lio.ls.x.pos - pos0)[0])
+    if (graphed and lio.ls is not graph.ls) or abs(moved - 1.0) > 1e-3:
+        fail(f"slam_handoff: the state moved {moved:.4f} m, not 1 m")
+    # the knn hit test of the JAX test, on the first keyframe, whose
+    # points the reset inserts first (later ones meet full buckets)
+    kf0 = pipe.keyframes[0]
+    R = so3.quat_to_matrix(torch.as_tensor(kf0.pose[0:4])).numpy()
+    world = (kf0.cloud[:64] @ R.T + kf0.pose[4:7]).astype(np.float32)
+    _, d2, ok = voxel_hash.knn(lio.ls.map, torch.as_tensor(world,
+                                                           device="cuda"),
+                               k=1, max_probe=8)
+    hit = float((ok[:, 0] & (d2[:, 0] < 1e-6)).float().mean())
+    if hit <= 0.9:
+        fail(f"slam_handoff: the map holds {hit:.2f} of the shifted "
+             "keyframe cloud (> 0.9 needed)")
+    feed(groups[SLAM_HANDOFF_SCANS:SLAM_HANDOFF_SCANS + SLAM_WINDOW])
+    pipe.flush()
+    if graphed and (lio.graph is not graph or graph.replays <= n_rep):
+        fail("slam_handoff: the window after the correction did not replay "
+             "the captured graph")
+    traj = np.array(lio.trajectory)
+    if len(traj) != SLAM_HANDOFF_SCANS - 1 + SLAM_WINDOW:
+        fail(f"slam_handoff: {len(traj)} results")
+    return {"traj": traj,
+            "keyframes": n_kf, "moved": moved, "hit": hit,
+            "replays": (n_rep, graph.replays) if graphed else None}
+
+
+def phase_slam_handoff(groups) -> dict:
+    """The state handoff on the card: the +1 m correction of handoff_run
+    under the captured graph must reach it (the same graph replays on,
+    `ls` stays the graph's, the map holds the shifted keyframe clouds) and
+    give the same trajectory, bit for bit, as the same run with every
+    window eager (a lost state would leave the graph's replays 1 m off).
+    The post-correction window follows the shifted frame within the room
+    ATE gate (0.15 m; its end error is reported beside the room's 0.030 m:
+    the reset map is built from the raw keyframe clouds, as in the
+    reference)."""
+    g = handoff_run(groups, graphed=True)
+    e = handoff_run(groups, graphed=False)
+    if not np.array_equal(g["traj"], e["traj"]):
+        d = float(np.abs(g["traj"] - e["traj"]).max()) if (
+            g["traj"].shape == e["traj"].shape) else None
+        fail(f"slam_handoff: the graph's trajectory differs from the eager "
+             f"run's after the correction (max {d})")
+    traj = g["traj"]
+    gt = np.array([x["gt_pos"] for x in groups[1:len(traj) + 1]])
+    est = traj[:, :3] - traj[0, :3]
+    ref = gt - gt[0] + [1.0, 0.0, 0.0]
+    post = slice(len(traj) - SLAM_WINDOW, len(traj))  # the next window
+    err = np.linalg.norm(est[post] - ref[post], axis=1)
+    ate, end = float(np.sqrt(np.mean(err ** 2))), float(err[-1])
+    if ate > 0.15 or end > 0.15:
+        fail(f"slam_handoff: after the correction ATE {ate:.4f} m, end "
+             f"error {end:.4f} m in the shifted frame (<= 0.15)")
+    out = {"phase": "slam_handoff", "scans_before": SLAM_HANDOFF_SCANS - 1,
+           "scans_after": SLAM_WINDOW, "keyframes": g["keyframes"],
+           "graph_replays_before_after": g["replays"],
+           "graph_equals_eager": True, "state_moved_m": g["moved"],
+           "map_hit_fraction": g["hit"], "ate_shifted_m": ate,
+           "end_err_shifted_m": end,
+           "gate": {"ate_m": 0.15, "end_err_m": 0.15, "map_hit": 0.9,
+                    "room_end_err_m": 0.030}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_backend_cuda(pipe, device: str = "cuda") -> dict:
+    """The back end on the card (backend_on_host=False) on the slam
+    phase's keyframes: every keyframe's descriptor, the first loop's
+    verification (SC gate + ICP) and optimize(iters=6, cg_iters=50) of
+    the final graph.  Run twice on CUDA in the run's f32, each gives the
+    same bits; in f64 each matches the CPU port within the CPU parity
+    tests' tolerances (descriptors exactly, ICP pose and fitness 1e-8,
+    optimize poses 1e-9).  The f32 CUDA-CPU differences are reported."""
+    import torch
+
+    from better_fastlio2_tpu_torch.backend import posegraph as pgm
+    from better_fastlio2_tpu_torch.ops import scancontext as sc
+
+    dev, cpu = torch.device(device), torch.device("cpu")
+    f32, f64 = torch.float32, torch.float64
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    pads = [pipe._pad_fix(kf.cloud, pipe._CUR_PAD) for kf in pipe.keyframes]
+
+    def descs(device, dtype):
+        return torch.stack([sc.make_descriptor(
+            torch.as_tensor(b, dtype=dtype, device=device),
+            torch.as_tensor(v, device=device), pipe.sc_params)
+            for b, v in pads]).cpu()
+
+    def graph_on(device, dtype):
+        return type(pipe.graph)(*(
+            t.to(device=device, dtype=dtype) if t.is_floating_point()
+            else t.to(device) for t in pipe.graph))
+
+    def opt(device, dtype):
+        return pgm.optimize(graph_on(device, dtype), iters=6,
+                            cg_iters=50).poses.cpu()
+
+    i, j, _ = pipe.loop_pairs[0]
+
+    def verify(device, dtype):
+        d, s, pose, fit = loop_verify(pipe, j, i, device, dtype)
+        return torch.cat([d.reshape(1).double().cpu(),
+                          s.reshape(1).double().cpu(),
+                          pose.double().cpu(), fit.reshape(1).double().cpu()])
+
+    checks = {}
+    for name, fn in (("descriptors", descs), ("loop_verification", verify),
+                     ("optimize", opt)):
+        a, b = fn(dev, f32), fn(dev, f32)
+        if not torch.equal(a, b):
+            fail(f"backend_cuda: {name} on CUDA differs between two runs")
+        c64, g64 = fn(cpu, f64), fn(dev, f64)
+        checks[name] = {"bit_identical_runs": True,
+                        "f32_max_abs_diff_cpu": float(
+                            (a.double() - fn(cpu, f32).double()).abs().max()),
+                        "f64_max_abs_diff_cpu": float(
+                            (g64 - c64).abs().max())}
+    d = checks["descriptors"]["f64_max_abs_diff_cpu"]
+    v = verify(dev, f64) - verify(cpu, f64)
+    o = checks["optimize"]["f64_max_abs_diff_cpu"]
+    if d != 0.0:
+        fail(f"backend_cuda: f64 descriptors differ from the CPU port by {d}")
+    if v[1] != 0 or float(v[2:].abs().max()) > 1e-8:
+        fail(f"backend_cuda: f64 loop verification differs from the CPU "
+             f"port: {v.tolist()}")
+    if o > 1e-9:
+        fail(f"backend_cuda: f64 optimize differs from the CPU port by {o}")
+    out = {"phase": "backend_cuda", "keyframes": len(pads),
+           "loop_pair": [i, j], "checks": checks,
+           "tolerance": {"descriptors": 0.0, "icp_pose_fitness": 1e-8,
+                         "optimize_poses": 1e-9},
+           "cuda_ms": {
+               "descriptor": host_ms(lambda: (sc.make_descriptor(
+                   torch.as_tensor(pads[0][0], device=dev),
+                   torch.as_tensor(pads[0][1], device=dev),
+                   pipe.sc_params), sync())),
+               "loop_verification": host_ms(lambda: (verify(dev, f32))),
+               "optimize_6x50": host_ms(lambda: opt(dev, f32))}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_slam_phases(room_groups, room_window_ms) -> dict:
+    """The SLAM slice's phases: slam (bench.py --slam), backend_cuda on its
+    keyframes, and slam_handoff on the room sequence."""
+    t0 = time.perf_counter()
+    groups = slam_sequence()
+    print(json.dumps({"phase": "sequence_slam", "scans": len(groups),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    slam, pipe = phase_slam(groups, room_window_ms)
+    phase_backend_cuda(pipe)
+    del pipe, groups
+    phase_slam_handoff(room_groups)
+    return slam
+
+
 def main() -> None:
     # the smoke runs on one card: make it the only one CUDA sees
     os.environ["CUDA_VISIBLE_DEVICES"] = first_card()
@@ -1055,6 +1512,11 @@ def main() -> None:
         fail(f"the port is not importable from here: {e}")
     card = card_line()
     phase_build()
+    if "--only-slam" in sys.argv[1:]:
+        # a development run of the slice-5 phases alone: no result lines
+        print(card, flush=True)
+        run_slam_phases(make_bench_sequence("room", N_SCANS), None)
+        return
     floor_us = launch_floor_us()
     k1 = phase_kernels(floor_us)
     k2 = phase_k2(floor_us)
@@ -1094,6 +1556,7 @@ def main() -> None:
                                 bench_config("outdoor"), outdoor, 0.136,
                                 0.68, bench_outdoor)
     del outdoor
+    slam = run_slam_phases(groups, room_w["ms_per_scan_steady"])
     lib = phase_library_graph()
     phase_one_launch()
     print(json.dumps({"phase": "total",
@@ -1104,7 +1567,7 @@ def main() -> None:
     k1_by_phase = {p["phase"]: p["launches_total"] for p in
                    (main_out, bench_room, bench_outdoor)}
     k1_by_phase.update({p["phase"]: p["k1_launches_executed"]
-                        for p in (room_w, outdoor_w)})
+                        for p in (room_w, outdoor_w, slam)})
     k2_err = max(c["max_abs_err"] for c in
                  k2["checks"] + row["checks"] + row_ext["checks"])
     k2_t = k2["timing"]["ext"]

@@ -633,3 +633,142 @@ def test_cuda_graph_capture_collects_dead_graphs_first(cuda):
         gc.enable()
     assert p.graph is not None and seen == [(False, True)] * p.graph.steps
     assert gc.isenabled()
+
+
+# ---- slice 5: state replacement under the graph, the back end on CUDA ----
+
+def _replaced(p, world_pts, offset):
+    """The SLAM back end's two state writes, through LIOPipeline.ls's
+    setter: a pose feedback, then the map reset from world points."""
+    ls = p.ls
+    p.ls = ls._replace(x=ls.x._replace(pos=ls.x.pos + offset))
+    p.reset_map_from_world_points(world_pts)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_takes_replaced_state(cuda):
+    """After the capture, a state replaced between windows (a +1 m pose
+    feedback and a map reset with its dense moment table, as the SLAM
+    back end's correction writes them) reaches the captured graph: its
+    next replays equal the same ticks run eagerly from that state, bit
+    for bit, the graph is neither captured again nor bypassed, and `ls`
+    stays the graph's own tensors.  A state of another shape raises."""
+    groups = _bench_groups(2.4)
+    pg_, pe = _graph_pipe(), _graph_pipe()
+    pe._graphed = False
+    for g in groups[:13]:  # init, two warmup windows, the capture window
+        pg_.process_scan(*_args(g))
+        pe.process_scan(*_args(g))
+    graph = pg_.graph
+    assert graph is not None and pg_.ls is graph.ls
+    n0 = graph.replays
+    # world points: the map's own first points, shifted with the pose
+    pts = pg_.ls.map.points.reshape(-1, 3)
+    pts = pts[pts[:, 0] < 1e8][:3000].cpu().numpy() + [1.0, 0.0, 0.0]
+    off = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    dmom_before = graph.ls.map.dmom.clone()
+    for p in (pg_, pe):
+        _replaced(p, pts, off)
+    assert pg_.ls is graph.ls and pg_.graph is graph
+    assert not torch.equal(graph.ls.map.dmom, dmom_before)
+    for g in groups[13:]:
+        pg_.process_scan(*_args(g))
+        pe.process_scan(*_args(g))
+    pg_.flush()
+    pe.flush()
+    assert pg_.graph is graph and graph.replays > n0
+    np.testing.assert_array_equal(np.array(pg_.trajectory),
+                                  np.array(pe.trajectory))
+    np.testing.assert_array_equal(pg_.ls.map.dmom.cpu().numpy(),
+                                  pe.ls.map.dmom.cpu().numpy())
+    with pytest.raises(ValueError, match="state replacement"):
+        pg_.ls = pg_.ls._replace(P=pg_.ls.P[:-1])
+
+
+def _square(device, dtype):
+    """A drifted square of 41 poses with a loop factor, a Cauchy factor
+    and GPS fixes, built with the port's factor adds."""
+    from better_fastlio2_tpu_torch.backend import posegraph as pgm
+    from better_fastlio2_tpu_torch.utils import se3, so3
+
+    rng = np.random.default_rng(0)
+    g = pgm.make_graph(64, 4, 128, max_gps=8, dtype=dtype, device=device)
+
+    def mk(yaw, t):
+        return se3.make(so3.quat_exp(torch.tensor([0.0, 0.0, yaw],
+                                                  dtype=dtype)),
+                        torch.tensor(t, dtype=dtype)).to(device)
+
+    gt, yaw, pos = [], 0.0, np.zeros(3)
+    for leg in range(4):
+        for k in range(10):
+            gt.append((yaw, pos.copy()))
+            pos = pos + [np.cos(yaw), np.sin(yaw), 0.0]
+        yaw += np.pi / 2
+    gt.append((yaw, pos.copy()))
+    est = mk(*gt[0])
+    g = pgm.set_pose(g, 0, est)
+    g = pgm.add_prior(g, 0, est, 1e-6, 1e-6)
+    for k in range(1, len(gt)):
+        odom = se3.between(mk(*gt[k - 1]), mk(*gt[k]))
+        noise = se3.exp(torch.tensor(np.concatenate(
+            [rng.normal(0, 0.01, 3) + [0.01, 0, 0], rng.normal(0, 0.002, 3)]),
+            dtype=dtype, device=device))
+        odom = se3.compose(odom, noise)
+        est = se3.compose(est, odom)
+        g = pgm.set_pose(g, k, est)
+        g = pgm.add_between(g, k - 1, k, odom, 1e-2, 1e-3, robust=k % 7 == 0)
+    g = pgm.add_between(g, 0, len(gt) - 1,
+                        se3.between(mk(*gt[0]), mk(*gt[-1])), 1e-3, 1e-4)
+    for k in range(0, len(gt), 8):
+        g = pgm.add_gps(g, k, torch.tensor(gt[k][1], dtype=dtype,
+                                           device=device), 0.05)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_backend_deterministic_and_matches_cpu(cuda, dtype):
+    """optimize (GN + PCG: the scatter-adds are sorted segment sums) and
+    make_descriptor (an order-free scatter-max) on the card give the same
+    bits on two runs.  In f64 they match the CPU port to the tolerances
+    of the CPU parity tests (poses 1e-9, descriptors exactly, ICP pose and
+    fitness 1e-8)."""
+    from better_fastlio2_tpu_torch.backend import posegraph as pgm
+    from better_fastlio2_tpu_torch.ops import icp, scancontext as sc
+    from better_fastlio2_tpu_torch.utils import se3
+
+    g = _square(cuda, dtype)
+    o1 = pgm.optimize(g, iters=6, cg_iters=50).poses
+    o2 = pgm.optimize(g, iters=6, cg_iters=50).poses
+    assert torch.equal(o1, o2)
+    rng = np.random.default_rng(1)
+    r = rng.uniform(2, 70, 8192)
+    th = rng.uniform(0, 2 * np.pi, 8192)
+    pts = np.stack([r * np.cos(th), r * np.sin(th),
+                    rng.uniform(-1.4, 6.0, 8192)], 1)
+    pc = torch.as_tensor(pts, dtype=dtype, device=cuda)
+    ok = torch.ones(8192, dtype=torch.bool, device=cuda)
+    d1, d2 = sc.make_descriptor(pc, ok), sc.make_descriptor(pc, ok)
+    assert torch.equal(d1, d2)
+    if dtype != torch.float64:
+        return
+    oc = pgm.optimize(_square("cpu", dtype), iters=6, cg_iters=50).poses
+    np.testing.assert_allclose(o1.cpu().numpy(), oc.numpy(), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_array_equal(
+        d1.cpu().numpy(),
+        sc.make_descriptor(pc.cpu(), ok.cpu()).numpy())
+    src = pts[:2000] * [0.1, 0.1, 1.0]
+    tgt = src + [0.05, -0.02, 0.0]
+    res = []
+    for dev in (cuda, "cpu"):
+        t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in (src, tgt)]
+        v = torch.ones(2000, dtype=torch.bool, device=dev)
+        res.append(icp.icp_point2plane(t[0], v, t[1], v,
+                                       se3.identity(dtype, dev),
+                                       max_corr=10.0, iters=10))
+    np.testing.assert_allclose(res[0].pose.cpu().numpy(),
+                               res[1].pose.numpy(), atol=1e-8)
+    np.testing.assert_allclose(float(res[0].fitness), float(res[1].fitness),
+                               atol=1e-8)

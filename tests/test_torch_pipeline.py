@@ -171,9 +171,14 @@ def test_pipeline_device_rules():
 
 
 UNSUPPORTED = {
-    "rebuild": lambda c: setattr(c.ikdtree, "recontruct_kdtree", True),
     "features": lambda c: setattr(c.preprocess, "feature_extract_enable",
                                   True),
+}
+# refused by slices 1-4, ported by slice 5 (the map rebuild at the kd_step
+# cadence; kd_step 2 runs its tombstone check every other scan)
+PORTED_IN_SLICE_5 = {
+    "rebuild": lambda c: (setattr(c.ikdtree, "recontruct_kdtree", True),
+                          setattr(c.ikdtree, "kd_step", 2)),
 }
 # refused by slice 1, ported by slice 2 (the row path, the grouped insert)
 PORTED_IN_SLICE_2 = {
@@ -278,7 +283,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("what", sorted(PORTED_IN_SLICE_2)
                          + sorted(PORTED_IN_SLICE_3)
-                         + sorted(PORTED_IN_SLICE_4))
+                         + sorted(PORTED_IN_SLICE_4)
+                         + sorted(PORTED_IN_SLICE_5))
 def test_former_refusals_run(what):
     """The options earlier slices refused now construct and run on the CPU:
     IMU init, the map-building scan, then updates whose associations grow
@@ -287,11 +293,15 @@ def test_former_refusals_run(what):
     scans and associate by the moment plane (23-145 valid rows; with the
     claim budget the map grows by at most 64 voxels a scan).  Slice 4's
     pipeline options run five scans and drain the pending results with
-    flush()."""
+    flush().  Slice 5's map rebuild runs five scans with its tombstone
+    check at the kd_step cadence (the 400 m cube crops nothing here;
+    tests/test_torch_map_rebuild.py makes the rebuild fire)."""
     cfg = slice_cfg(tcfg)
     n_scans, kw = 5, PORTED_IN_SLICE_4.get(what, {})
     if what in PORTED_IN_SLICE_2:
         PORTED_IN_SLICE_2[what](cfg)
+    elif what in PORTED_IN_SLICE_5:
+        PORTED_IN_SLICE_5[what](cfg)
     elif what in PORTED_IN_SLICE_3:
         PORTED_IN_SLICE_3[what](cfg)
         n_scans = 10
