@@ -24,9 +24,15 @@ Every state the back end hands to the front end (the pose feedback of a
 correction, the non-finite rollback, the map reset after a jump) goes
 through `LIOPipeline.ls`'s setter, which reaches a captured CUDA graph.
 Nothing here is compiled ahead, so the reference's compile-priming block
-has no counterpart.  Live dynamic-object removal (cfg.dynamic_removal)
-is not ported yet: it comes with the perception modules (ROADMAP item
-11).
+has no counterpart.
+
+Live dynamic-object removal (cfg.dynamic_removal, the integration the
+reference shipped commented out, laserMapping.cpp:2271-2307) runs before
+each scan enters the front end: Patchwork ground, curved-voxel clusters
+and either the overlap tracker against the grid `dyn_track_gap` scans
+back or the K-frame world-occupancy appearance test.  The perception runs
+on the front end's device in cfg.dtype; its pose extrapolation from the
+front end's trajectory runs on the host in f32, as the reference's.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from ..backend import posegraph as pg
 from ..config import LIOConfig
 from ..ops import icp as icp_ops
 from ..ops import scancontext as sc
+from ..perception import dynamic as dyn
+from ..perception import patchwork
 from ..utils import se3, so3
 from .lio import _DTYPES, LIOPipeline
 
@@ -89,10 +97,6 @@ class SLAMPipeline:
         backend_on_host=True runs the back end's tensors on the CPU (the
         reference's CPU back-end thread, laserMapping.cpp:1021-1038),
         else on the front end's device."""
-        if cfg.dynamic_removal:
-            raise NotImplementedError(
-                "dynamic_removal is not ported yet: it comes with ROADMAP "
-                "item 11 (perception: patchwork ground, dynamic removal)")
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
         # pipelined: each result describes an earlier scan, paired with
@@ -133,6 +137,22 @@ class SLAMPipeline:
             self._loop_thread = threading.Thread(
                 target=self._loop_thread_main, daemon=True)
             self._loop_thread.start()
+        # live dynamic removal: the perception parameters and the tracking
+        # histories (the grids `gap` scans back, or the appearance test's
+        # K-frame world keys and sensor positions)
+        h = cfg.sensor_height
+        self._ssc_params = dyn.SSCParams(
+            sensor_height=cfg.ssc_sensor_height or h)
+        self._pw_params = patchwork.PatchworkParams(sensor_height=h)
+        self._grid_hist: deque = deque(
+            maxlen=max(1, int(cfg.dyn_track_gap)))
+        K = max(4, int(cfg.dyn_track_k))
+        self._app_hist: deque = deque(maxlen=K)
+        self._app_sens: deque = deque(maxlen=K + 1)
+        self._app_n = 0  # appearance-mode scan counter (dump names)
+        self._dyn_dump_idx = 0
+        self.dynamic_dump_dir: str | None = None
+        self.last_dynamic_mask: np.ndarray | None = None
 
     def _bt(self, a, dtype=None) -> torch.Tensor:
         """A back-end tensor (the pipeline dtype unless given)."""
@@ -239,6 +259,10 @@ class SLAMPipeline:
 
     def process_scan(self, pts, pt_t, imu_acc, imu_gyr, imu_t,
                      scan_beg_abs, scan_end_t):
+        # optional live dynamic-object removal: segment the ground,
+        # cluster the rest, drop the clusters tracked as moving
+        if self.cfg.dynamic_removal:
+            pts, pt_t = self._remove_dynamic(pts, pt_t)
         tracked = self.lio.inited  # this scan will yield a result later
         out = self.lio.process_scan(pts, pt_t, imu_acc, imu_gyr, imu_t,
                                     scan_beg_abs, scan_end_t)
@@ -303,6 +327,130 @@ class SLAMPipeline:
         out["n_keyframes"] = len(self.keyframes)
         out["n_loops"] = len(self.loop_pairs)
         return out
+
+    # -- live dynamic removal (config-gated) --------------------------------
+    def _pose_estimate(self):
+        """(current scan's pose estimate, T_prev<-cur of the tracked grid)
+        from the front end's trajectory, on the host in f32 as the
+        reference computes them (the current scan's pose is extrapolated
+        at constant velocity over the front end's result lag)."""
+        gap = max(1, int(self.cfg.dyn_track_gap))
+        traj = self.lio.trajectory
+        ident = se3.identity(self.dtype)
+        rel, cur_est = ident, None
+
+        def t2pose(row):
+            # trajectory rows are [pos(3) | quat(4)] (LIOPipeline._record);
+            # se3 poses are [quat(4) | pos(3)]
+            r = np.asarray(row, np.float32)
+            return torch.as_tensor(np.concatenate([r[3:7], r[0:3]]))
+
+        if len(traj) >= 1:
+            # the newest result is `pend` scans older than the scan before
+            # this one: in window mode the pending windows and the open
+            # window's scans, per scan the one readback in flight
+            lio = self.lio
+            if lio._use_window:
+                pend = (sum(nv for _, nv in lio._pending_ws)
+                        + len(lio._wbuf))
+            else:
+                pend = 1 if lio._pending_info is not None else 0
+            p_last = t2pose(traj[-1])
+            step = (se3.between(t2pose(traj[-2]), p_last)
+                    if len(traj) >= 2 else ident)
+            cur_est = p_last
+            for _ in range(pend + 1):
+                cur_est = se3.compose(cur_est, step)
+        if len(traj) >= gap + 1:
+            # T_prev<-cur = prev^-1 * cur; the tracked grid's scan (`gap`
+            # scans before this one) has pose trajectory[-gap]
+            rel = se3.between(t2pose(traj[-gap]), cur_est).to(self.dtype)
+        return cur_est, rel
+
+    def _remove_dynamic(self, pts, pt_t):
+        """The removal step of one scan: returns the kept (pts, pt_t) and
+        sets last_dynamic_mask (the removed points)."""
+        cfg, prm = self.cfg, self._ssc_params
+        dev = self.lio.device
+        p = torch.as_tensor(np.asarray(pts), dtype=self.dtype, device=dev)
+        valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+        gm = patchwork.estimate_ground(p, valid, self._pw_params)
+        cur_est, rel = self._pose_estimate()
+        if cfg.dyn_track_mode == "appearance":
+            keep, grid = self._appearance_keep(pts, p, valid, gm, cur_est)
+        else:
+            hist = self._grid_hist
+            prev_grid = hist[0] if len(hist) == hist.maxlen else None
+            static, grid = dyn.dynamic_removal_masks(
+                p, valid, gm, prev_grid, rel.to(dev), prm)
+            hist.append(grid)
+            keep = static.cpu().numpy()
+        # the removal decision, for the PR/RR/F1 evaluation
+        self.last_dynamic_mask = ~keep
+        # inspection dumps (saveColorCloud analog, tgrs.cpp:214-243): the
+        # cluster-colored cloud and the removed points of each scan
+        if self.dynamic_dump_dir:
+            from ..io.pcd import write_pcd
+
+            dump = self.dynamic_dump_dir
+            os.makedirs(dump, exist_ok=True)
+            k = self._dyn_dump_idx
+            self._dyn_dump_idx = k + 1
+            dyn.save_cluster_cloud(
+                os.path.join(dump, f"{k:06d}_color.pcd"), pts, grid)
+            removed = pts[~keep]
+            if len(removed):
+                write_pcd(os.path.join(dump, f"{k:06d}_removed.pcd"),
+                          removed.astype(np.float32))
+        return pts[keep], pt_t[keep]
+
+    def _appearance_keep(self, pts, p, valid, gm, cur_est):
+        """The K-frame world-occupancy appearance test (dyn_track_mode=
+        "appearance"): a mover's current world voxels were free space
+        ~2 s ago.  Returns (keep mask, grid)."""
+        cfg, prm = self.cfg, self._ssc_params
+        hist, sens = self._app_hist, self._app_sens
+        K = hist.maxlen
+        old_lo = max(2, int(round(K * 5 / 6)))  # frames 20..24 of 24
+        band = ((valid & ~gm) & (p[:, 2] <= cfg.dyn_appear_z_band))
+        grid = dyn.cluster_grid(dyn.encode_scan(p, band, prm), prm)
+        band = band.cpu().numpy()
+        lab_pt = dyn.point_labels(grid)
+        cur_np = (cur_est.numpy().astype(np.float64) if cur_est is not None
+                  else np.array([1.0, 0, 0, 0, 0, 0, 0]))
+        R = so3.quat_to_matrix(torch.as_tensor(
+            cur_np[0:4], dtype=self.dtype)).numpy().astype(np.float64)
+        pts_w = np.asarray(pts, np.float64) @ R.T + cur_np[4:7]
+        keys = dyn.world_voxel_keys(pts_w, cfg.dyn_appear_voxel)
+        sens.append(cur_np[4:7].copy())
+        dynmask = np.zeros(len(pts), bool)
+        if len(hist) >= K:
+            old_sorted = np.unique(np.concatenate(
+                [hist[-k] for k in range(old_lo, K + 1)]))
+            r_max = cfg.dyn_appear_range
+            d_now = np.linalg.norm(pts_w - cur_np[4:7], axis=1)
+            d_old = np.linalg.norm(pts_w - sens[0], axis=1)
+            scored = band & (lab_pt >= 0) & (d_now <= r_max) & (
+                d_old <= r_max)
+            dynmask = dyn.appearance_dynamic_mask(
+                keys, scored, band, lab_pt, old_sorted,
+                thr_strong=cfg.dyn_appear_thr_strong,
+                thr_weak=cfg.dyn_appear_thr_weak,
+                min_cnt=cfg.dyn_appear_min_cnt,
+                min_scored_frac=cfg.dyn_appear_min_scored_frac)
+            # threshold-tuning dump: each scan's decision inputs, so a
+            # threshold sweep replays offline (tools/tune_dynamic.py)
+            dump_dir = os.environ.get("LIO_DYN_TUNE_DUMP")
+            if dump_dir:
+                os.makedirs(dump_dir, exist_ok=True)
+                np.savez_compressed(
+                    os.path.join(dump_dir, f"scan_{self._app_n:05d}.npz"),
+                    keys=keys, scored=scored, band=band, lab_pt=lab_pt,
+                    old_sorted=old_sorted, d_now=d_now.astype(np.float32),
+                    d_old=d_old.astype(np.float32))
+        hist.append(np.unique(keys[band & (lab_pt >= 0)]))
+        self._app_n += 1
+        return ~dynmask, grid
 
     # -- keyframe + odom factor (addOdomFactor, :550-582) ------------------
     def _add_keyframe(self, pose7, pts, t_abs):

@@ -10,13 +10,11 @@
   Context descriptors, loop markers).
 * SLAMPipeline on every shipped configuration that
   tests/test_torch_pipeline.py::test_shipped_configs runs, a few scans at
-  its small shapes; configs/hap_livox.yaml sets dynamic_removal and
-  raises the ROADMAP item 11 error.
+  its small shapes (no shipped configuration sets dynamic_removal).
 * The behavioural assertions of tests/test_slam_backend.py and
   tests/test_gps_factor.py::test_gps_gating on the port: loop closure on
   a fabricated drifted revisit (and its loop markers), keyframe gating,
-  dynamic removal refused (the JAX test runs it; the port raises
-  NotImplementedError until item 11), the map rebuild after a material
+  the dynamic-removal flag run end to end, the map rebuild after a material
   correction, the async correction applied at the snapshot count, the
   GPS gates.  The window-mode run and the GPS drift run are in
   tests/test_torch_slam_window.py.
@@ -128,13 +126,8 @@ def test_shipped_configs_run_slam(name):
     """Each configs/*.yaml through SLAMPipeline at the small shapes of
     tests/test_torch_pipeline.py::test_shipped_configs (the file's own
     insert budgets and compaction kept): four scans, finite, keyframes
-    made; hap_livox.yaml sets dynamic_removal, which raises."""
+    made."""
     cfg = tcfg.load_yaml(str(REPO / "configs" / name))
-    if cfg.dynamic_removal:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            SLAMPipeline(cfg, device="cpu")
-        assert name == "hap_livox.yaml"
-        return
     small = slice_cfg(tcfg).shapes
     for k in ("insert_claim_budget", "insert_dense_budget",
               "insert_mom_budget", "solve_compact"):
@@ -250,12 +243,26 @@ def test_keyframe_gating():
 
 
 def test_dynamic_removal_flag_refused():
-    """The JAX test runs the flag end to end; the port refuses it until
-    the perception modules land (ROADMAP item 11)."""
+    """The SLAM pipeline with dynamic_removal processes scans and still
+    tracks (the flag path runs end to end): the port's mirror of
+    tests/test_slam_backend.py::test_dynamic_removal_flag_runs, under the
+    name of the refusal it replaces."""
     cfg = _cfg_small()
     cfg.dynamic_removal = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SLAMPipeline(cfg, max_keyframes=32, device="cpu")
+    cfg.sensor_height = 1.5
+    cfg.loop.enable = False
+    pipe = SLAMPipeline(cfg, max_keyframes=32, device="cpu")
+    groups = make_lio_sequence(duration=1.6, n_points=3000, seed=9,
+                               traj=Trajectory(t_still=1e9))
+    last = None
+    for g in groups:
+        out = pipe.process_scan(*_args(g))
+        if out is not None:
+            last = out
+        assert pipe.last_dynamic_mask.shape == (len(g["pts"]),)
+    assert last is not None
+    drift = np.linalg.norm(last["pos"] - (g["gt_pos"] - [0, 0, 1.5]))
+    assert drift < 0.2, drift
 
 
 def test_map_rebuild_on_loop_correction():
