@@ -8,7 +8,8 @@ and fused_hth); everything else is plain PyTorch.  The JAX package beside this o
 names and layout mirror it, and the tests hold each module against its JAX
 counterpart.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu`` for the command-line runners of run.py).
 """
 
 import torch as _torch

@@ -23,8 +23,10 @@ Ported: the fused single-association solve (slice 1), the ESIKF row path
 5-NN warmup program, the budgeted moment inserts, mom_dense, the
 compacted solve), the windowed, pipelined, quantized mode (slice 4) and
 the map rebuild at the kd_step cadence with the map reset after a loop
-correction (slice 5).  Feature extraction and mesh mode raise
-NotImplementedError naming the work that brings them.
+correction (slice 5), and LOAM plane-feature extraction on the host
+(`preprocess.feature_extract_enable`, io/features.py) with the C++
+wire packer of io/native.py.  Mesh mode raises NotImplementedError
+naming the work that brings it.
 
 The filter state is replaced between scans in one way, the `ls`
 property's setter: the rebuild, the map reset and the SLAM back end's
@@ -47,6 +49,8 @@ from torch.profiler import record_function
 from ..config import LIOConfig, derive_map_dense_log2
 from ..core import esikf, imu, measurement
 from ..core.state import State
+from ..io import native
+from ..io.features import feature_filter
 from ..map import voxel_hash
 from ..ops.downsample import voxel_downsample
 from ..utils import so3
@@ -82,8 +86,6 @@ def check_config(cfg: LIOConfig) -> None:
     """Raise NotImplementedError for every option the port does not carry
     yet, naming the later slice that brings it."""
     checks = [
-        (cfg.preprocess.feature_extract_enable,
-         "preprocess.feature_extract_enable", "the host I/O slice"),
         (cfg.dtype not in _DTYPES, f"dtype {cfg.dtype!r}", "no slice"),
     ]
     for bad, what, where in checks:
@@ -523,7 +525,7 @@ class LIOPipeline:
         no result); every other program runs the W ticks eagerly.
 
         quantized=True ships a window as the compact wire format
-        (QuantWindowInputs; the numpy packer, _pack_quant); at window=1
+        (QuantWindowInputs, packed by _pack_quant); at window=1
         it runs the window machinery with W = 1.  n_raw must be even.
 
         readback_depth=D (pipelined window mode) keeps up to D windows'
@@ -733,6 +735,12 @@ class LIOPipeline:
             self.last_scan_end_abs = scan_beg_abs + scan_end_t
             return None
 
+        if self.cfg.preprocess.feature_extract_enable:
+            # the plane features of give_feature (reference :871-877)
+            pts, pt_t = feature_filter(
+                np.asarray(pts, np.float32), np.asarray(pt_t),
+                n_rings=self.cfg.preprocess.scan_line)
+
         P, T, V = self._pad_points(pts, pt_t)
         A, G, Tt, Mk = self._pad_imu(imu_acc, imu_gyr, imu_t)
         self._scan_count += 1
@@ -808,14 +816,18 @@ class LIOPipeline:
 
     def _pack_quant(self, P, T, V, A, G, Tt, Mk, last_end_rel, scan_end_t):
         """One scan -> (bulk uint16 row, meta f32 row) of the quantized
-        wire format (reference :975-998, its numpy path)."""
+        wire format (reference :975-998): the C++ packer where
+        io/native.py has built it, else the numpy formula."""
         n_raw, m_imu = self.cfg.shapes.n_raw, self.cfg.shapes.n_imu
         dur = max(float(scan_end_t), 1e-9)
-        bulk = np.zeros(3 * n_raw + n_raw // 2, np.uint16)
-        qp = np.clip(np.round(P / POS_SCALE), -32767, 32767).astype(np.int16)
-        bulk[:3 * n_raw] = qp.reshape(-1).view(np.uint16)
-        t8 = np.clip(np.round(T / dur * 255.0), 0, 255).astype(np.uint16)
-        bulk[3 * n_raw:] = t8[0::2] | (t8[1::2] << 8)
+        bulk = native.pack_quant_bulk(P, T, POS_SCALE, dur)
+        if bulk is None:
+            bulk = np.zeros(3 * n_raw + n_raw // 2, np.uint16)
+            qp = np.clip(np.round(P / POS_SCALE), -32767,
+                         32767).astype(np.int16)
+            bulk[:3 * n_raw] = qp.reshape(-1).view(np.uint16)
+            t8 = np.clip(np.round(T / dur * 255.0), 0, 255).astype(np.uint16)
+            bulk[3 * n_raw:] = t8[0::2] | (t8[1::2] << 8)
         meta = np.zeros(8 * m_imu + 4, np.float32)
         im = meta[:8 * m_imu].reshape(m_imu, 8)
         im[:, 0:3] = A

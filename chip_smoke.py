@@ -72,6 +72,8 @@ Phases (any failure exits non-zero and prints no result line):
                window; peak
                memory with the graph's pool; K1's pass-0 inputs and
                outputs inside the graph held against the plain version;
+               every scan's wire row packed by the C++ packer
+               (io/native.py, counted);
  10. bench_outdoor_window — the same on the outdoor sequence with
                window=16 (unroll 8: two replays a window), K1 inside the
                graph checked at both widths (8192 and 10240);
@@ -142,16 +144,34 @@ Phases (any failure exits non-zero and prints no result line):
                keyframe scan's halves reported, not gated
                (tools/apps_reference.py runs the JAX package on the same
                inputs);
- 18. library_graph — the library calls' device time per call (graph
+ 18. cli     — the port's CLI end to end (slice 7): the room sequence
+               written as a KITTI raw-sync directory (each cloud in its
+               scan-end frame) and the bench configuration as a YAML file;
+               `run.py mapping --dataset kitti:<dir> --config <yaml>
+               --state-log` over all 240 scans (K1 on every updated scan,
+               two of its calls held against the plain version; the room
+               gate on pos_log.txt; the session and
+               fast_lio_time_log.csv read back); its first 40 rows equal
+               to SLAMPipeline.process_scan's in this process string for
+               string; `online_relo` (LIOConfig() defaults: K2 on every
+               pass, two calls held against the plain version; 12 frames,
+               initialized, relo frames), `multi_session` and
+               `object_update` of the session with itself; the C++ host
+               library built and loaded, and the window phases' rows all
+               packed by it; seconds of each subcommand, of writing and
+               of loading the directory;
+ 19. library_graph — the library calls' device time per call (graph
                replay), after the paths so that the cuBLAS workspace of
                the capturing stream does not count in their peak memory;
- 19. one_launch — under torch.profiler, one call of K1 and of K2 in each
+ 20. one_launch — under torch.profiler, one call of K1 and of K2 in each
                mode runs exactly one device kernel (run last, so that the
                profiler cannot touch the timed paths).
 
 `python chip_smoke.py --only-slam` runs the build and phases 11-13 alone,
-and `--only-perception` the build, phases 14-17 and the slam phase whose
-keyframes the apps take; neither prints a result line (development runs).
+`--only-perception` the build, phases 14-17 and the slam phase whose
+keyframes the apps take, and `--only-cli` the build and phase 18 (with
+no window phase to count packed rows); none prints a result line
+(development runs).
 `--save-app-inputs DIR` keeps the apps phase's sessions and clouds in DIR
 for tools/apps_reference.py.
 
@@ -843,6 +863,7 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
     import torch
 
     from better_fastlio2_tpu_torch.core import measurement
+    from better_fastlio2_tpu_torch.io import native
     from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
     from better_fastlio2_tpu_torch.utils.device import host_syncs
@@ -883,6 +904,7 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
     for k in KERNELS:
         getattr(kernels, k).launches = 0
     gt, t_steady, n_steady = [], None, 0
+    native.pack_quant_bulk.calls = 0
     measurement.fused_normal_eqs = spy
     try:
         for g in groups:
@@ -905,6 +927,11 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         t_end, reads = time.perf_counter(), host_syncs.count
     finally:
         measurement.fused_normal_eqs = real
+    # every scan after the IMU init is packed once, by the C++ packer
+    packed = native.pack_quant_bulk.calls
+    if packed != len(groups) - 1:
+        fail(f"{name}: the C++ packer packed {packed} of "
+             f"{len(groups) - 1} rows")
     peak = torch.cuda.max_memory_allocated()
     graph = pipe.graph
     if graph is None or not n_steady:
@@ -981,6 +1008,7 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         "k1_launches_executed": (launches["fused_normal_eqs"] - k1_captured
                                  + k1_nodes * replays),
         "graph_replays": replays, "steady_scans": n_steady,
+        "native_packed_rows": packed,
         "port_reads_per_steady_window": reads * W / n_steady,
         "torch_syncs_per_steady_window": 0,
         "sync_debug_mode_steady": "error",
@@ -2359,6 +2387,403 @@ def run_perception_phases(card: str, device=None) -> dict:
     return {"dynamic": dyn, "dynamic_window": dyn_w}
 
 
+# run.py from a KITTI raw-sync directory (slice 7): the room sequence
+# written in KITTI's byte layout, mapped through the port's CLI with the
+# bench configuration from a YAML file, then the other three subcommands
+# on the session it wrote
+CLI_BASE_NS = 1_600_000_000 * 10 ** 9  # epoch of the written stamps, ns
+CLI_SLICES = 32  # the time slices SyntheticWorld.scan samples a sweep in
+CLI_SAME_ROWS = 40  # pos_log rows the in-process run must reproduce
+CLI_RELO_SCANS = 12
+# the mapping run's K1 calls held to the plain version (~10 a scan: the
+# first, on a map of one scan, then call 100 in a warmup scan and 1200 in
+# a steady one) and online_relo's K2 calls (~4 a scan)
+CLI_K1_CHECK_CALLS = (1, 100, 1200)
+CLI_K2_CHECK_CALLS = (1, 40)
+
+
+def kitti_stamp(t_ns: int) -> str:
+    """One timestamps.txt line for epoch nanoseconds, in local time as the
+    KITTI loader reads it back."""
+    from datetime import datetime
+
+    sec, ns = divmod(int(t_ns), 10 ** 9)
+    return (datetime.fromtimestamp(sec).strftime("%Y-%m-%d %H:%M:%S")
+            + f".{ns:09d}")
+
+
+def write_kitti_dir(root: str, groups, traj=None) -> None:
+    """Write `groups` as a KITTI raw-sync directory in its byte layout
+    (tests/test_disk_e2e.py): velodyne_points/data/%010d.bin of f32
+    x y z reflectance rows, timestamps.txt with each scan's END stamp,
+    and one 30-field OXTS row per IMU sample (acceleration in fields
+    14:17, angular rate in 20:23, kitti2bag.py:39-44), each sample once.
+    With `traj`, the sequence's Trajectory, every cloud is first moved
+    into its scan-end frame: KITTI's clouds come deskewed, and the loader
+    stamps every point at the scan end (io/kitti.py)."""
+    velo = os.path.join(root, "velodyne_points", "data")
+    oxts = os.path.join(root, "oxts", "data")
+    os.makedirs(velo)
+    os.makedirs(oxts)
+    imu = {}  # microseconds -> (acc, gyr)
+    with open(os.path.join(root, "velodyne_points", "timestamps.txt"),
+              "w") as f:
+        for k, g in enumerate(groups):
+            pts = np.array(g["pts"], np.float64)
+            t0, dur = float(g["scan_beg_abs"]), float(g["scan_end_t"])
+            if traj is not None:
+                sl = np.minimum((np.asarray(g["pt_t"]) / dur
+                                 * CLI_SLICES).astype(int), CLI_SLICES - 1)
+                R1, p1 = traj.rot(t0 + dur), traj.pos(t0 + dur)
+                for s in np.unique(sl):
+                    m = sl == s
+                    tm = t0 + (s + 0.5) * dur / CLI_SLICES
+                    world = pts[m] @ traj.rot(tm).T + traj.pos(tm)
+                    pts[m] = (world - p1) @ R1
+            rows = np.zeros((len(pts), 4), np.float32)
+            rows[:, :3] = pts
+            rows.tofile(os.path.join(velo, f"{k:010d}.bin"))
+            f.write(kitti_stamp(CLI_BASE_NS + round((t0 + dur) * 1e9))
+                    + "\n")
+            for j, t in enumerate(g["imu_t"]):
+                imu.setdefault(round((t0 + float(t)) * 1e6),
+                               (g["imu_acc"][j], g["imu_gyr"][j]))
+    with open(os.path.join(root, "oxts", "timestamps.txt"), "w") as f:
+        for j, us in enumerate(sorted(imu)):
+            row = np.zeros(30)
+            row[14:17], row[20:23] = imu[us]
+            with open(os.path.join(oxts, f"{j:010d}.txt"), "w") as o:
+                o.write(" ".join(f"{v:.9f}" for v in row) + "\n")
+            f.write(kitti_stamp(CLI_BASE_NS + us * 1000) + "\n")
+
+
+def write_config_yaml(path: str, cfg) -> None:
+    """Write `cfg` as a YAML file of the reference's layout (the keys
+    LIOConfig.from_dict reads), and fail unless it loads back equal."""
+    import yaml
+
+    from better_fastlio2_tpu_torch.config import load_yaml
+
+    pre, mp, kd, sh = cfg.preprocess, cfg.mapping, cfg.ikdtree, cfg.shapes
+    d = {
+        "dtype": cfg.dtype,
+        "preprocess": {k: getattr(pre, k) for k in (
+            "lidar_type", "livox_type", "blind", "scan_line", "scan_rate",
+            "point_filter_num", "time_unit", "feature_extract_enable")},
+        "mapping": {
+            **{k: getattr(mp, k) for k in (
+                "gyr_cov", "acc_cov", "b_gyr_cov", "b_acc_cov", "det_range",
+                "fov_degree", "extrinsic_est_en", "cube_len")},
+            "mappingSurfLeafSize": mp.surf_leaf_size,
+            "keyframeAddingDistThreshold": mp.keyframe_adding_dist_threshold,
+            "keyframeAddingAngleThreshold":
+                mp.keyframe_adding_angle_threshold,
+            "extrinsic_T": list(mp.extrinsic_T),
+            "extrinsic_R": list(mp.extrinsic_R)},
+        "ikdtree": {
+            **{k: getattr(kd, k) for k in (
+                "max_iteration", "kd_step", "filter_size_map_min",
+                "single_association", "plane_cache", "plane_cache_warmup",
+                "mom_cap", "fused_solve", "mom_dense", "early_converge")},
+            "recontructKdTree": kd.recontruct_kdtree},
+        "shapes": {
+            **{k: getattr(sh, k) for k in (
+                "n_raw", "n_ds", "n_imu", "map_capacity_log2", "map_bucket",
+                "map_max_probe", "knn_chunk", "knn_neighbors",
+                "knn_max_live", "insert_claim_budget", "insert_dense_budget",
+                "insert_mom_budget", "solve_compact", "map_dense_z_clip",
+                "ds_drop_high_z", "assoc_cells")},
+            "map_dense_log2": (list(sh.map_dense_log2)
+                               if sh.map_dense_log2 is not None else None)},
+    }
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f, sort_keys=False)
+    back = load_yaml(path)
+    if repr(back) != repr(cfg):
+        fail(f"cli: {path} does not load back as the configuration written:"
+             f"\n{back}\n{cfg}")
+
+
+def _cli(argv: list[str]) -> tuple[dict, float]:
+    """run.main(argv) in this process: its last line of standard output as
+    JSON, and its seconds (the card synchronised at both ends)."""
+    import contextlib
+    import io
+
+    from better_fastlio2_tpu_torch import run
+
+    buf = io.StringIO()
+    card_sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run.main(argv)
+    card_sync()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    if not lines:
+        fail(f"cli: {argv[0]} printed nothing")
+    return json.loads(lines[-1]), seconds
+
+
+class KernelSpy:
+    """Wrap core.measurement's call of one kernel wrapper: count its calls
+    and keep the inputs and outputs of the calls numbered in `keep`
+    (1-based) for a comparison with the plain version after the run."""
+
+    def __init__(self, name: str, keep):
+        from better_fastlio2_tpu_torch.core import measurement
+
+        self.name, self.keep = name, set(keep)
+        self.real = getattr(measurement, name)
+        self.calls, self.captured = 0, []
+
+    def __call__(self, *args, **kw):
+        out = self.real(*args, **kw)
+        self.calls += 1
+        if self.calls in self.keep:
+            ins = [a.clone() for a in args]
+            outs = [o.clone() for o in out]
+            self.captured.append((ins, kw, outs))
+        return out
+
+    def __enter__(self):
+        from better_fastlio2_tpu_torch.core import measurement
+
+        setattr(measurement, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        from better_fastlio2_tpu_torch.core import measurement
+
+        setattr(measurement, self.name, self.real)
+
+    def checks(self) -> list[dict]:
+        if self.name == "fused_hth":
+            return [compare_k2(ins, kw["extrinsic"], *outs)
+                    for ins, kw, outs in self.captured]
+        return [compare_k1(*ins, *outs) for ins, kw, outs in self.captured]
+
+
+def _read_rows(path: str) -> list[str]:
+    with open(path) as f:
+        return f.readlines()
+
+
+def phase_cli(groups, card: str, native_rows: dict | None,
+              device: str = "cuda") -> dict:
+    """`run.py mapping` from a KITTI directory, the port's CLI end to end
+    (slice 7), on `device`:
+
+    1. the room sequence written as a KITTI raw-sync directory (each cloud
+       in its scan-end frame, write_kitti_dir) and bench_config("room") as
+       a YAML file; their seconds, and the loader's to read it all back;
+    2. `mapping --dataset kitti:<dir> --config <yaml> --output S
+       --state-log`: K1 on every updated scan, its calls
+       CLI_K1_CHECK_CALLS held against the plain version (the later ones
+       on live lanes), K2 never; the
+       room gate on pos_log.txt against ground truth (each row describes
+       the scan before the one whose stamp it carries: the SLAM front end
+       is pipelined, and the reference's CLI writes it so too); the
+       session read back; fast_lio_time_log.csv one row a scan, the
+       median steady ms/scan from its totals;
+    3. the first CLI_SAME_ROWS rows again from SLAMPipeline.process_scan
+       on the loader's groups in this process, equal string for string;
+    4. `online_relo --prior S --max-scans 12` with LIOConfig() defaults
+       (the row path with extrinsic estimation): K2 on every pass, its
+       calls CLI_K2_CHECK_CALLS held against the plain version; K1 never;
+       initialized, at least
+       one relo frame, 12 finite poses written;
+    5. `multi_session --central S --query S`: at least one Scan Context
+       loop, the merged session twice S's keyframes;
+    6. `object_update --central S --query S`: every query object fused
+       with its own copy, none new or old;
+    7. the native library built and loaded (io.native.available()); the
+       window phases' rows all packed by it (`native_rows`, None when the
+       window phases did not run)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from better_fastlio2_tpu_torch.config import load_yaml
+    from better_fastlio2_tpu_torch.io import native
+    from better_fastlio2_tpu_torch.io.kitti import KittiRawSequence
+    from better_fastlio2_tpu_torch.io.pcd import read_pcd
+    from better_fastlio2_tpu_torch.io.session import SessionReader
+    from better_fastlio2_tpu_torch.io.synthetic import Trajectory
+    from better_fastlio2_tpu_torch.ops import kernels
+    from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
+    from better_fastlio2_tpu_torch.run import format_row
+    from better_fastlio2_tpu_torch.utils.timing import CSV_HEADER
+
+    if not native.available():
+        fail("cli: the native host library did not build or load")
+    if native_rows is not None and set(native_rows.values()) == {0}:
+        fail(f"cli: the window phases packed no row natively: {native_rows}")
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="bflio2_cli_")
+    try:
+        data, sess = os.path.join(tmp, "kitti"), os.path.join(tmp, "session")
+        cfg_path = os.path.join(tmp, "bench_room.yaml")
+        t0 = time.perf_counter()
+        write_kitti_dir(data, groups, Trajectory(t_still=0.7, speed=3.0))
+        write_config_yaml(cfg_path, bench_config("room"))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = list(KittiRawSequence(data).groups())  # the CLI's defaults
+        load_s = time.perf_counter() - t0
+        if len(loaded) != len(groups):
+            fail(f"cli: the loader read {len(loaded)} of {len(groups)} scans")
+
+        # 2. mapping
+        for k in KERNELS:
+            getattr(kernels, k).launches = 0
+        with KernelSpy("fused_normal_eqs", CLI_K1_CHECK_CALLS) as k1:
+            summary, map_s = _cli([
+                "mapping", "--dataset", f"kitti:{data}", "--config",
+                cfg_path, "--output", sess, "--state-log", "--device",
+                device])
+        launches = {k: getattr(kernels, k).launches for k in KERNELS}
+        k1_checks = k1.checks()
+        updated = len(groups) - 1  # every scan but the IMU init's
+        if summary["scans"] != len(groups):
+            fail(f"cli: mapping ran {summary['scans']} of {len(groups)} "
+                 "scans")
+        if cuda and (launches["fused_normal_eqs"] < updated
+                     or launches["fused_hth"]
+                     or len(k1_checks) != len(CLI_K1_CHECK_CALLS)
+                     or not all(c["max_abs_G"] > 0 for c in k1_checks[1:])):
+            fail(f"cli: mapping launched {launches} in {updated} updated "
+                 f"scans ({len(k1_checks)} K1 calls checked)")
+        rows = _read_rows(os.path.join(sess, "pos_log.txt"))
+        if len(rows) != updated - 1:
+            fail(f"cli: pos_log.txt has {len(rows)} rows for {updated} "
+                 "updated scans (the last one's result is still pending)")
+        est = np.array([[float(v) for v in r.split()] for r in rows])
+        gt = np.array([g["gt_pos"] for g in groups[1:1 + len(rows)]])
+        if not np.all(np.isfinite(est)):
+            fail("cli: pos_log.txt has non-finite values")
+        ate, end = accuracy(est[:, 1:4], gt)
+        if end > 0.030 or ate > 0.15:
+            fail(f"cli accuracy gate: end error {end:.4f} m (<= 0.030), ATE"
+                 f" {ate:.4f} m (<= 0.15)")
+        reader = SessionReader(sess)
+        poses = np.asarray(reader.poses)
+        if (reader.num_keyframes != summary["keyframes"]
+                or reader.num_keyframes < 2
+                or not np.all(np.isfinite(poses))):
+            fail(f"cli: the session read back has {reader.num_keyframes} "
+                 f"keyframes (the CLI made {summary['keyframes']})")
+        log = _read_rows(os.path.join(sess, "fast_lio_time_log.csv"))
+        if log[0] != CSV_HEADER or len(log) != 1 + len(groups):
+            fail(f"cli: fast_lio_time_log.csv has {len(log) - 1} rows, "
+                 f"header {log[0]!r}")
+        total_ms = [1e3 * float(r.split(",")[1]) for r in log[1:]]
+        steady_ms = total_ms[PLANE_CACHE_WARMUP + 1:]
+
+        # 3. the same scans in this process, without the CLI
+        cfg = load_yaml(cfg_path)
+        cfg.loop.enable = False  # as `mapping` without --loop
+        pipe = SLAMPipeline(cfg, device=device)
+        same = []
+        try:
+            for g in loaded[:CLI_SAME_ROWS + 2]:
+                out = pipe.process_scan(
+                    g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
+                    g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
+                if out is not None:
+                    same.append(format_row(g["scan_beg_abs"], *out["pos"],
+                                           *out["quat"]))
+        finally:
+            pipe.close()
+        del pipe
+        if len(same) != CLI_SAME_ROWS or same != rows[:CLI_SAME_ROWS]:
+            bad = next((i for i, (a, b) in enumerate(zip(same, rows))
+                        if a != b), None)
+            fail(f"cli: the in-process run's {len(same)} rows differ from "
+                 f"the CLI's at row {bad}")
+
+        # 4. online_relo with LIOConfig() defaults: the row path
+        relo_dir = os.path.join(tmp, "relo")
+        for k in KERNELS:
+            getattr(kernels, k).launches = 0
+        with KernelSpy("fused_hth", CLI_K2_CHECK_CALLS) as k2:
+            relo, relo_s = _cli([
+                "online_relo", "--prior", sess, "--dataset", f"kitti:{data}",
+                "--max-scans", str(CLI_RELO_SCANS), "--output", relo_dir,
+                "--device", device])
+        relo_launches = {k: getattr(kernels, k).launches for k in KERNELS}
+        k2_checks = k2.checks()
+        relo_rows = np.array([[float(v) for v in r.split()] for r in
+                              _read_rows(os.path.join(relo_dir,
+                                                      "relo_pose.txt"))])
+        if (not relo["initialized"] or relo["relo_frames"] < 1
+                or relo["frames"] != CLI_RELO_SCANS
+                or relo_rows.shape != (CLI_RELO_SCANS, 7)
+                or not np.all(np.isfinite(relo_rows))):
+            fail(f"cli: online_relo {relo}, relo_pose.txt "
+                 f"{relo_rows.shape}")
+        if cuda and (relo_launches["fused_hth"] < CLI_K2_CHECK_CALLS[-1]
+                     or relo_launches["fused_normal_eqs"]
+                     or len(k2_checks) != len(CLI_K2_CHECK_CALLS)
+                     or not all(c["n_valid"] > 0 for c in k2_checks)):
+            fail(f"cli: online_relo launched {relo_launches}")
+
+        # 5. multi_session of S with itself
+        ms_dir = os.path.join(tmp, "merged")
+        ms, ms_s = _cli(["multi_session", "--central", sess, "--query", sess,
+                         "--output", ms_dir, "--device", device])
+        merged = SessionReader(os.path.join(ms_dir, "merged_session"))
+        merged_map, _ = read_pcd(os.path.join(ms_dir, "aft_map2.pcd"))
+        if (ms["sc_loops"] < 1
+                or merged.num_keyframes != 2 * reader.num_keyframes
+                or not len(merged_map)):
+            fail(f"cli: multi_session {ms}, merged session "
+                 f"{merged.num_keyframes} keyframes, map {len(merged_map)}")
+
+        # 6. object_update of S with itself
+        ou_dir = os.path.join(tmp, "objects")
+        ou, ou_s = _cli(["object_update", "--central", sess, "--query", sess,
+                         "--output", ou_dir, "--device", device])
+        n_pts = {k: len(read_pcd(os.path.join(ou_dir, f"objects_{k}.pcd"))[0])
+                 for k in ("fused", "new", "old")}
+        if (ou["n_central_objects"] != ou["n_query_objects"]
+                or ou["fused"] != ou["n_query_objects"]
+                or ou["new"] or ou["old"] or n_pts["new"] or n_pts["old"]):
+            fail(f"cli: object_update {ou}, points {n_pts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {
+        "phase": "cli", "scans": len(groups), "device": device,
+        "seconds": time.perf_counter() - t_phase,
+        "summary": summary, "seconds_mapping": map_s,
+        "ms_per_scan_median_steady": float(np.median(steady_ms)),
+        "ms_per_scan_median_warmup": float(np.median(
+            total_ms[1:PLANE_CACHE_WARMUP + 1])),
+        "write_s": write_s, "load_s": load_s,
+        "ate_m": ate, "end_err_m": end,
+        "gate": {"end_err_m": 0.030, "ate_m": 0.15},
+        "pos_log_rows": len(rows), "rows_equal_in_process": len(same),
+        "keyframes": reader.num_keyframes,
+        "k1_launches": launches["fused_normal_eqs"],
+        "k1_launches_per_updated_scan": launches["fused_normal_eqs"]
+        / updated,
+        "k1_checks": k1_checks,
+        "online_relo": {**relo, "seconds": relo_s,
+                        "k2_launches": relo_launches["fused_hth"],
+                        "k2_checks": k2_checks},
+        "multi_session": {**ms, "seconds": ms_s,
+                          "merged_keyframes": merged.num_keyframes},
+        "object_update": {**ou, "seconds": ou_s, "points": n_pts},
+        "native": {"available": True, "library": native.LIB_PATH,
+                   "window_rows_packed": native_rows},
+        "card": card,
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     # the smoke runs on one card: make it the only one CUDA sees
     os.environ["CUDA_VISIBLE_DEVICES"] = first_card()
@@ -2381,6 +2806,11 @@ def main() -> None:
         # a development run of the slice-5 phases alone: no result lines
         print(card, flush=True)
         run_slam_phases(make_bench_sequence("room", N_SCANS), None)
+        return
+    if "--only-cli" in sys.argv[1:]:
+        # a development run of the slice-7 phase alone: no result lines
+        print(card, flush=True)
+        phase_cli(make_bench_sequence("room", N_SCANS), card, None)
         return
     if "--only-perception" in sys.argv[1:]:
         # a development run of the slice-6 phases alone (slam runs for the
@@ -2434,6 +2864,8 @@ def main() -> None:
     perception = run_perception_phases(card)
     phase_apps(slam_pipe, slam_groups, card, keep=keep)
     del slam_pipe, slam_groups
+    cli = phase_cli(groups, card, {p["phase"]: p["native_packed_rows"]
+                                   for p in (room_w, outdoor_w)})
     lib = phase_library_graph()
     phase_one_launch()
     print(json.dumps({"phase": "total",
@@ -2446,11 +2878,15 @@ def main() -> None:
     k1_by_phase.update({p["phase"]: p["k1_launches_executed"]
                         for p in (room_w, outdoor_w, slam)})
     k1_by_phase.update({k: p["k1_launches"] for k, p in perception.items()})
+    k1_by_phase["cli"] = cli["k1_launches"]
+    k1_err = max([k1_err] + [c["max_abs_err"] for c in cli["k1_checks"]])
     k2_by_phase = {p["phase"]: p["launches_total"] for p in (row, row_ext)}
     k2_by_phase.update({k: p["k2_launches"] for k, p in perception.items()})
+    k2_by_phase["cli"] = cli["online_relo"]["k2_launches"]
     k2_err = max(c["max_abs_err"] for c in
                  k2["checks"] + row["checks"] + row_ext["checks"]
-                 + [c for p in perception.values() for c in p["k2_checks"]])
+                 + [c for p in perception.values() for c in p["k2_checks"]]
+                 + cli["online_relo"]["k2_checks"])
     k2_t = k2["timing"]["ext"]
     print(card, flush=True)
     print(json.dumps({"kernels": [{

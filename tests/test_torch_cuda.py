@@ -980,3 +980,53 @@ def test_cuda_apps_deterministic_and_match_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(g[k], c[k], err_msg=k)
     for k, tol in (("merge", 1e-4), ("relo", 1e-8), ("fpfh", 1e-8)):
         np.testing.assert_allclose(g[k], c[k], rtol=0, atol=tol, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_mapping_deterministic_and_matches_cpu(cuda, tmp_path):
+    """`run.py mapping --device cuda` from a KITTI directory (this file's
+    sequence, each cloud in its scan-end frame) with _cfg() as a YAML file:
+    two runs write the same state rows and session files bit for bit, and
+    against the CPU port (f32) the rows agree within the CPU/CUDA drift
+    test_cuda_pipeline_matches_cpu allows (1 cm)."""
+    import contextlib
+    import io
+    import json
+    import os
+
+    from chip_smoke import write_config_yaml, write_kitti_dir
+
+    from better_fastlio2_tpu_torch.run import main as run_main
+
+    traj = Trajectory(t_still=0.5, speed=2.0)
+    write_kitti_dir(str(tmp_path / "kitti"), _groups(), traj)
+    write_config_yaml(str(tmp_path / "cfg.yaml"), _cfg())
+    outs = {}
+    for name, dev in (("a", "cuda"), ("b", "cuda"), ("cpu", "cpu")):
+        out = str(tmp_path / name)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_main(["mapping", "--dataset", f"kitti:{tmp_path / 'kitti'}",
+                      "--config", str(tmp_path / "cfg.yaml"), "--output",
+                      out, "--state-log", "--device", dev])
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        files = {}
+        for d, _, fs in os.walk(out):
+            for f in fs:
+                if f != "fast_lio_time_log.csv":  # measured times
+                    with open(os.path.join(d, f), "rb") as fh:
+                        files[os.path.relpath(os.path.join(d, f), out)] = \
+                            fh.read()
+        outs[name] = (summary, files)
+    (sa, fa), (sb, fb) = outs["a"], outs["b"]
+    assert sa["keyframes"] == sb["keyframes"] >= 1
+    assert fa.keys() == fb.keys() and "pos_log.txt" in fa
+    for k in fa:
+        assert fa[k] == fb[k], k
+    rows = {n: np.array([[float(v) for v in r.split()] for r in
+                         outs[n][1]["pos_log.txt"].decode().splitlines()])
+            for n in ("a", "cpu")}
+    assert rows["a"].shape == rows["cpu"].shape and len(rows["a"]) >= 10
+    np.testing.assert_array_equal(rows["a"][:, 0], rows["cpu"][:, 0])
+    np.testing.assert_allclose(rows["a"][:, 1:4], rows["cpu"][:, 1:4],
+                               rtol=0, atol=1e-2)

@@ -170,7 +170,9 @@ def test_pipeline_device_rules():
     assert LIOPipeline(cfg, device="cpu").device.type == "cpu"
 
 
-UNSUPPORTED = {
+# refused by slices 1-6, ported by slice 7 (LOAM plane features on the
+# host before the scan is padded)
+PORTED_IN_SLICE_7 = {
     "features": lambda c: setattr(c.preprocess, "feature_extract_enable",
                                   True),
 }
@@ -225,17 +227,11 @@ PORTED_IN_SLICE_4 = {
 }
 
 
-@pytest.mark.parametrize("what", sorted(UNSUPPORTED) + ["mesh"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unsupported_options_raise(what):
     cfg = slice_cfg(tcfg)
-    kw = {}
-    if what == "mesh":
-        kw["mesh"] = object()
-    else:
-        UNSUPPORTED[what](cfg)
-    with pytest.raises(NotImplementedError,
-                       match="item 14" if what == "mesh" else None):
-        LIOPipeline(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        LIOPipeline(cfg, device="cpu", mesh=object())
 
 
 def test_config_matches_jax():
@@ -284,7 +280,8 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("what", sorted(PORTED_IN_SLICE_2)
                          + sorted(PORTED_IN_SLICE_3)
                          + sorted(PORTED_IN_SLICE_4)
-                         + sorted(PORTED_IN_SLICE_5))
+                         + sorted(PORTED_IN_SLICE_5)
+                         + sorted(PORTED_IN_SLICE_7))
 def test_former_refusals_run(what):
     """The options earlier slices refused now construct and run on the CPU:
     IMU init, the map-building scan, then updates whose associations grow
@@ -295,13 +292,18 @@ def test_former_refusals_run(what):
     pipeline options run five scans and drain the pending results with
     flush().  Slice 5's map rebuild runs five scans with its tombstone
     check at the kd_step cadence (the 400 m cube crops nothing here;
-    tests/test_torch_map_rebuild.py makes the rebuild fire)."""
+    tests/test_torch_map_rebuild.py makes the rebuild fire).  Slice 7's
+    feature extraction runs five scans on the plane features alone (too
+    sparse here to associate; tests/test_torch_features.py holds it
+    against the JAX package on a denser sweep)."""
     cfg = slice_cfg(tcfg)
     n_scans, kw = 5, PORTED_IN_SLICE_4.get(what, {})
     if what in PORTED_IN_SLICE_2:
         PORTED_IN_SLICE_2[what](cfg)
     elif what in PORTED_IN_SLICE_5:
         PORTED_IN_SLICE_5[what](cfg)
+    elif what in PORTED_IN_SLICE_7:
+        PORTED_IN_SLICE_7[what](cfg)
     elif what in PORTED_IN_SLICE_3:
         PORTED_IN_SLICE_3[what](cfg)
         n_scans = 10
@@ -314,7 +316,13 @@ def test_former_refusals_run(what):
         outs = [None] + recs
         assert len(outs) == n_scans
     assert outs[0] is None and outs[1]["n_eff"] == 0
-    assert outs[-1]["n_eff"] > 20 and outs[-1]["map_voxels"] > 8000
+    if what == "features":
+        # this randomly sampled 3000-return sweep keeps ~270 plane
+        # features a scan, and the map grows by them alone
+        assert 1000 < outs[-1]["map_voxels"] < 2000
+        assert all(o["n_ds"] < 400 for o in outs[1:])
+    else:
+        assert outs[-1]["n_eff"] > 20 and outs[-1]["map_voxels"] > 8000
     assert np.all(np.isfinite(outs[-1]["pos"]))
     assert (tp.ls.map.dmom is not None) == (what == "mom_dense")
     if what == "insert_budget":

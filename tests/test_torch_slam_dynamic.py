@@ -43,6 +43,7 @@ from better_fastlio2_tpu.io.synthetic import (OutdoorWorld, Trajectory,
                                               make_lio_sequence)
 import better_fastlio2_tpu_torch.config as tcfg
 from better_fastlio2_tpu_torch.io.evaluate import pr_rr_f1
+from better_fastlio2_tpu_torch.io import native as tnative
 from better_fastlio2_tpu_torch.io.pcd import read_pcd_fields
 from better_fastlio2_tpu_torch.perception import patchwork as tpw
 from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
@@ -128,6 +129,7 @@ def run_parity(monkeypatch, mode, window, port_mask=False):
     Returns the ill-posed points of each scan."""
     monkeypatch.setattr(jslam, "jnp", _F64Jnp())
     monkeypatch.setattr(jnative, "pack_quant_bulk", lambda *a: None)
+    monkeypatch.setattr(tnative, "pack_quant_bulk", lambda *a: None)
     n_ill = _shared_ground(monkeypatch, port_mask)
     kw = dict(max_keyframes=32)
     if window:

@@ -27,6 +27,7 @@ from better_fastlio2_tpu.io.synthetic import (SyntheticWorld, Trajectory,
                                               make_lio_sequence)
 from better_fastlio2_tpu.pipeline.slam import SLAMPipeline as JaxSLAM
 import better_fastlio2_tpu_torch.config as tcfg
+from better_fastlio2_tpu_torch.io import native as tnative
 from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
 from test_torch_pipeline import _args
 from test_torch_pipeline_bench import bench_cfg
@@ -57,6 +58,7 @@ def _shift(pipe):
 
 def test_window_slam_forced_correction_matches_jax(monkeypatch):
     monkeypatch.setattr(jnative, "pack_quant_bulk", lambda *a: None)
+    monkeypatch.setattr(tnative, "pack_quant_bulk", lambda *a: None)
     groups = _bench_groups()
     kw = dict(max_keyframes=32, lio_kwargs=dict(window=4, quantized=True))
     jp = JaxSLAM(_window_cfg(jcfg), **kw)

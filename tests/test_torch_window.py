@@ -9,10 +9,13 @@
   f64 positions within 1e-6 m (the runs drift apart from ~1e-16 m,
   doubling per scan: ~1e-11 m at the end unquantized, ~5e-9 m
   quantized), moment tables within what that drift moves a row by; both
-  pack the wire format with the numpy formula.
-* The wire format: _pack_quant's bytes equal the reference's numpy
-  formula (mirrors tests/test_lio_pipeline.py:145), and the port's decode
-  of a packed window equals the JAX package's wstep_q decode exactly.
+  pack the wire format with the numpy formula (the C++ packer breaks
+  round-half ties apart from it, tests/test_torch_native.py).
+* The wire format: _pack_quant's bytes equal the JAX package's C++
+  packer's where it is built, and with the packer off the reference's
+  numpy formula (mirrors tests/test_lio_pipeline.py:145); the port's
+  decode of a packed window equals the JAX package's wstep_q decode
+  exactly.
 * Quantized tracking (mirrors tests/test_lio_pipeline.py:99): ATE < 0.10
   m; the bench path combination on mom_dense (mirrors
   tests/test_mom_dense.py:274): ATE < 0.12 m, within 0.05 m of the
@@ -24,6 +27,8 @@ The sync-free update under the window is held in
 tests/test_torch_sync_free.py.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +39,7 @@ from better_fastlio2_tpu.io import native as jnative
 from better_fastlio2_tpu.io.synthetic import (SyntheticWorld, Trajectory,
                                               make_lio_sequence)
 import better_fastlio2_tpu_torch.config as tcfg
+from better_fastlio2_tpu_torch.io import native as tnative
 from better_fastlio2_tpu_torch.pipeline import lio as tlio
 from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
 from better_fastlio2_tpu_torch.utils.tree import tree_tensors
@@ -98,10 +104,11 @@ def _bench_groups():
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_bench_window_matches_jax_f64(quantized, monkeypatch):
-    # the JAX package packs with its C++ packer where it has one, which
-    # breaks round-half ties the other way; the port packs with the numpy
-    # formula, and so does the JAX package without the packer
+    # both packages pack with their C++ packer where it is built, which
+    # lands values within a rounding of a half step one step apart from
+    # the numpy formula: numpy against numpy here
     monkeypatch.setattr(jnative, "pack_quant_bulk", lambda *a: None)
+    monkeypatch.setattr(tnative, "pack_quant_bulk", lambda *a: None)
     groups = _bench_groups()
     jp = jlio.LIOPipeline(bench_cfg(jcfg), window=4, quantized=quantized)
     tp = LIOPipeline(bench_cfg(tcfg), device="cpu", window=4,
@@ -120,6 +127,23 @@ def test_bench_window_matches_jax_f64(quantized, monkeypatch):
                                np.asarray(jp.ls.map.dmom),
                                rtol=1e-9, atol=1e-9 + 24 * 0.8 * 2 * drift)
     assert _ate(tt, groups)[0] < 0.10
+
+
+def jax_native_loaded():
+    """The JAX package's native binding, loaded.  Its loader links
+    native/libbflio2_native.so through one fixed temp name, so two test
+    processes building it at the same moment can leave one without it (a
+    failed link, or a half-written file that its symbol check or dlopen
+    refuses): that process tries again once the other build has landed."""
+    for _ in range(4):
+        try:
+            if jnative.available():
+                return jnative
+        except OSError:
+            pass
+        time.sleep(5.0)
+        jnative._lib, jnative._tried = None, False
+    raise AssertionError("the JAX package's native library did not build")
 
 
 def _quant_scan(rng, n, m):
@@ -144,15 +168,23 @@ def test_quant_wire_bytes_and_decode_match_jax(monkeypatch):
     scans = [_quant_scan(rng, n, m) for _ in range(2)]
     rows = []
     for k, (P, T, V, A, G, Tt, Mk) in enumerate(scans):
-        bulk, meta = tp._pack_quant(P, T, V, A, G, Tt, Mk, -0.01 * k, 0.1)
+        bulk_c, _ = tp._pack_quant(P, T, V, A, G, Tt, Mk, -0.01 * k, 0.1)
+        with monkeypatch.context() as mp:  # the numpy formula
+            mp.setattr(tnative, "pack_quant_bulk", lambda *a: None)
+            bulk, meta = tp._pack_quant(P, T, V, A, G, Tt, Mk, -0.01 * k,
+                                        0.1)
         ref = np.zeros(3 * n + n // 2, np.uint16)
         qp = np.clip(np.round(P / tlio.POS_SCALE), -32767,
                      32767).astype(np.int16)
         ref[:3 * n] = qp.reshape(-1).view(np.uint16)
         t8 = np.clip(np.round(T / 0.1 * 255.0), 0, 255).astype(np.uint16)
         ref[3 * n:] = t8[0::2] | (t8[1::2] << 8)
-        assert bulk.dtype == np.uint16
+        assert bulk.dtype == bulk_c.dtype == np.uint16
         np.testing.assert_array_equal(bulk, ref)
+        # with the C++ packer, the JAX package's C++ packer's bytes
+        np.testing.assert_array_equal(bulk_c, jax_native_loaded()
+                                      .pack_quant_bulk(P, T, tlio.POS_SCALE,
+                                                       0.1))
         ref_meta = np.concatenate([
             np.concatenate([A, G, np.where(Mk, Tt, 0.0)[:, None],
                             Mk[:, None]], 1).reshape(-1),
