@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel import collectives
 from ..utils import s2 as s2m
 from ..utils import so3
 from ..utils.device import to_host
@@ -264,22 +265,31 @@ def _rows_T(M, A3, A6, S2b):
     return M
 
 
-def _normal_eqs(m: MeasurementOut, dtype, K: int):
+def _normal_eqs(m: MeasurementOut, dtype, K: int, psum=None):
     """(HTH (K, K), HTh (K,), n_valid ()) of one pass, from whichever form
-    the measure filled."""
+    the measure filled; with a mesh `psum`, summed over its ranks (the
+    Gram in one all-reduce, the row path's three in one more)."""
     if m.gram is not None:
         if K != 6:
             raise ValueError(f"the Gram path has 6 columns, not {K}")
         G = m.gram.to(dtype)
+        if psum is not None:
+            G = collectives.psum(G, psum)
         return G[:K, :K], G[:K, 6], G[7, 7]
     if m.neq is not None:
         HTH, HTh, n_valid = (v.to(dtype) for v in m.neq)
-        return HTH, HTh, n_valid
-    w = m.mask.to(dtype)
-    h_x = m.h_x * w[:, None]
-    if h_x.shape[1] != K:
-        raise ValueError(f"h_x has {h_x.shape[1]} columns, n_cols={K}")
-    return h_x.T @ h_x, h_x.T @ (m.h * w), torch.sum(w)
+    else:
+        w = m.mask.to(dtype)
+        h_x = m.h_x * w[:, None]
+        if h_x.shape[1] != K:
+            raise ValueError(f"h_x has {h_x.shape[1]} columns, n_cols={K}")
+        HTH, HTh, n_valid = h_x.T @ h_x, h_x.T @ (m.h * w), torch.sum(w)
+    if psum is not None:
+        # each entry sums on its own: packing changes no bit
+        flat = collectives.psum(
+            torch.cat([HTH.reshape(-1), HTh, n_valid.reshape(1)]), psum)
+        HTH, HTh, n_valid = flat[:K * K].reshape(K, K), flat[K * K:-1], flat[-1]
+    return HTH, HTh, n_valid
 
 
 def _woodbury_gain(dx, x, x_prop, P_prop, HTH, R: float, K: int):
@@ -327,6 +337,7 @@ def update_iterated(
     R: float = 0.001,
     limit: float = 0.001,
     n_cols: int = 12,
+    psum=None,
 ):
     """Iterated dyn-share update (esekfom.hpp:1620-1938).
 
@@ -356,6 +367,12 @@ def update_iterated(
     The final covariance is the Joseph form, PSD by construction (the
     reference's L - K_x P cancels in f32).
 
+    psum (a parallel.collectives.Mesh; the reference's psum_axis): the
+    measure's rows are this rank's share of the scan, and every pass's
+    normal equations are summed over the mesh before the replicated
+    solve, on both paths.  Everything after the sum is the same on every
+    rank, so the row path's host read of the converged flag is too.
+
     Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff}
     (device tensors on the Gram path, `iters` and `t` host ints on the
     row path).
@@ -363,13 +380,13 @@ def update_iterated(
     m = measure_fn(x_prop, True, aux0)
     if m.gram is not None:
         return _update_gram(x_prop, P_prop, measure_fn, m, max_iter, R,
-                            limit, n_cols)
+                            limit, n_cols, psum)
     return _update_rows(x_prop, P_prop, measure_fn, m, max_iter, R, limit,
-                        n_cols)
+                        n_cols, psum)
 
 
 def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
-                 limit: float, K: int):
+                 limit: float, K: int, psum=None):
     """The Gram path of update_iterated, predicated: pass i of the
     reference's while loop is unrolled pass i here (the pass index is
     static), and its results are selected in only while `done` is
@@ -383,7 +400,7 @@ def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
         if i:
             x, t, conv, aux = carry[:4]
             m = measure_fn(x, conv, aux)
-        HTH, HTh, n_valid = _normal_eqs(m, dtype, K)
+        HTH, HTh, n_valid = _normal_eqs(m, dtype, K, psum)
         dx = boxminus(x, x_prop)
         valid = n_valid >= 1.0  # laserMapping.cpp:1956-1961 guard
         dx_new, P_inv12, blocks = _woodbury_gain(dx, x, x_prop, P_prop, HTH,
@@ -412,7 +429,7 @@ def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
 
 
 def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
-                 limit: float, K: int):
+                 limit: float, K: int, psum=None):
     """The row path of update_iterated: a host loop, one read of the
     converged flag per pass (utils.device.to_host counts it)."""
     dtype = P_prop.dtype
@@ -425,7 +442,7 @@ def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
     while True:
         if i:
             m = measure_fn(x, conv, aux)
-        HTH, HTh, n_valid = _normal_eqs(m, dtype, K)
+        HTH, HTh, n_valid = _normal_eqs(m, dtype, K, psum)
         dx = boxminus(x, x_prop)
         valid = n_valid >= 1.0  # laserMapping.cpp:1956-1961 guard
         T, dx_new = _dx_transport(dx, x, x_prop)

@@ -40,6 +40,7 @@ from torch.profiler import record_function
 from ..map import voxel_hash
 from ..ops.kernels import (_OK, _VAL, SOA_CH, fused_hth, fused_normal_eqs,
                            pack_soa)
+from ..parallel import collectives
 from ..utils import so3
 from ..utils.device import nonzero_static, to_host
 from ..utils.tree import tree_where
@@ -183,7 +184,7 @@ def _sym3(s6: torch.Tensor) -> torch.Tensor:
 
 def neighborhood_moment_sums(m: voxel_hash.VoxelHashMap,
                              p_world: torch.Tensor, max_probe: int = 16,
-                             cells: str = "face7"
+                             cells: str = "face7", cell_mask_fn=None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sums (N, 10), ijk (N, 3)): per-query moments of the blended cell
     neighbourhood, rebased to the query's own-cell corner and summed.
@@ -192,13 +193,19 @@ def neighborhood_moment_sums(m: voxel_hash.VoxelHashMap,
     moment normal; young cells with < 3 points take z as the normal) or
     "octant4" (own + the 3 face neighbours on the point's side of its
     cell centre).  The reference measured the two reduced modes diverging
-    end to end; they stay knobs."""
+    end to end; they stay knobs.  `cell_mask_fn(nb_coords) -> bool`
+    keeps only the cells it passes (the ownership-sharded map sums the
+    cells a rank owns and psums the partials: moment sums add across
+    shards)."""
     dtype = m.points.dtype
     vs = m.voxel_size
     ijk = voxel_hash._voxel_of(p_world, vs)
 
     def gather(nb):
-        return _gather_moment_rows(m, nb, max_probe, dtype)
+        rows = _gather_moment_rows(m, nb, max_probe, dtype)
+        if cell_mask_fn is None:
+            return rows
+        return torch.where(cell_mask_fn(nb)[..., None], rows, 0.0)
 
     if cells == "tangent5":
         own = gather(ijk[:, None, :])[:, 0]
@@ -364,6 +371,7 @@ def make_measure_fn(
     early_converge: bool = False,
     solve_compact: int = 0,
     assoc_cells: str = "face7",
+    psum=None,
 ):
     """measure_fn(state, converged, aux) -> MeasurementOut closure over a
     fixed scan and map, for esikf.update_iterated, plus its initial aux.
@@ -385,6 +393,14 @@ def make_measure_fn(
     compacted into (16, B) when they fit.
     Every other combination takes the row form: its normal equations come
     from ops/kernels.fused_hth, K = 12 columns with extrinsic_est, else 6.
+
+    psum (a parallel.collectives.Mesh; the reference's psum_axis):
+    `pts_body` is this rank's share of the scan, and every count that
+    steers a pass (the valid count, the moved count of the lazy refresh
+    and of early_converge) is summed over the mesh, so that every rank
+    takes the same branch; the normal equations themselves are summed by
+    esikf.update_iterated(psum=...).  The row form sums its counts before
+    reading them on the host.
     """
 
     def search_rows(p_w, rows_valid):
@@ -403,15 +419,20 @@ def make_measure_fn(
         return _make_fused_measure(m, pts_body, pts_valid, search_rows,
                                    refresh_budget,
                                    early_converge=early_converge,
-                                   solve_compact=solve_compact)
+                                   solve_compact=solve_compact, psum=psum)
     return _make_row_measure(m, pts_body, pts_valid, search_rows,
                              extrinsic_est, single_association,
-                             refresh_budget)
+                             refresh_budget, psum=psum)
+
+
+def _global(count: torch.Tensor, psum) -> torch.Tensor:
+    """`count` summed over the mesh `psum` (itself without one)."""
+    return count if psum is None else collectives.psum(count, psum)
 
 
 def _make_row_measure(m, pts_body, pts_valid, search_rows,
                       extrinsic_est: bool, single_association: bool,
-                      refresh_budget: int):
+                      refresh_budget: int, psum=None):
     """The row-form measure closure (see make_measure_fn).
 
     The reference's Jacobian rows (laserMapping.cpp:1966-2002) are
@@ -427,8 +448,8 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
     sqrt_body = torch.sqrt(torch.clamp(
         torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
     lazy = single_association and refresh_budget > 0
-    n_val_scan = (int(to_host(torch.sum(pts_valid.to(torch.int32))))
-                  if lazy else 0)
+    n_val_scan = (int(to_host(_global(
+        torch.sum(pts_valid.to(torch.int32)), psum))) if lazy else 0)
 
     def measure(s: State, converged: bool, aux: MeasureAux) -> MeasurementOut:
         p_rot = so3.quat_rotate(s.off_r, pts_body)
@@ -446,7 +467,8 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
 
         if lazy and converged and not aux.refreshed:
             need = (pts_valid & torch.any(ijk_now != aux.assoc_ijk, dim=-1))
-            n_need = int(to_host(torch.sum(need.to(torch.int32))))
+            n_need = int(to_host(_global(torch.sum(need.to(torch.int32)),
+                                         psum)))
             if n_need * 20 > n_val_scan:  # > 5% of valid rows
                 with record_function("lio.refresh"):
                     aux = _budgeted_refresh(
@@ -486,7 +508,7 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
 
 def _make_fused_measure(m, pts_body, pts_valid, search_rows,
                         refresh_budget: int, early_converge: bool = False,
-                        solve_compact: int = 0):
+                        solve_compact: int = 0, psum=None):
     """The fused-solve measure closure (see make_measure_fn), sync-free
     (reference :582-746): every lax.cond of the reference is a device
     select here, so a pass reads nothing on the host.
@@ -504,7 +526,7 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
     invb = 0.9 / torch.sqrt(torch.clamp(
         torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
     vs = m.voxel_size.to(dtype)
-    n_val_scan = torch.sum(pts_valid.to(dtype))
+    n_val_scan = _global(torch.sum(pts_valid.to(dtype)), psum)
     B = int(solve_compact) if 0 < int(solve_compact) < N else 0
 
     def with_compact(aux):
@@ -566,7 +588,8 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
             so3.quat_to_matrix(s.rot).reshape(-1), s.pos, vs[None],
             torch.zeros(3, dtype=dtype, device=dev),
         ]).to(torch.float32)
-        G, n_moved = solve(aux, params)
+        G, n_moved_l = solve(aux, params)
+        n_moved = _global(n_moved_l, psum)
 
         if refresh_budget > 0:
             fire = (converged & ~aux.refreshed
@@ -576,7 +599,7 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
                 # re-solve over the refreshed association
                 G_r, mv_r = solve(aux, params)
             G = torch.where(fire, G_r, G)
-            n_moved = torch.where(fire, mv_r, n_moved)
+            n_moved = _global(torch.where(fire, mv_r, n_moved_l), psum)
 
         # re-association would change nothing only when the moved fraction
         # is below the trigger (judged even after the refresh is spent)

@@ -46,9 +46,6 @@ Translation notes:
 * `knn_sortjoin`'s `lax.sort` over (key, is_query) with a max-carry
   `associative_scan` becomes one stable sort of the combined key and a
   `torch.cummax` over the positions of the map entries.
-
-Not ported yet: the SPMD arguments of `insert_dense_moments`
-(multi-device).
 """
 
 from __future__ import annotations
@@ -59,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from ..utils.device import nonzero_static, to_host
 
 __all__ = ["VoxelHashMap", "make_map", "insert", "insert_dense_moments",
@@ -511,9 +509,8 @@ def _kill_replace_dups(dst: torch.Tensor, own: torch.Tensor,
 def insert_dense_moments(dmom: torch.Tensor, dense_shape: tuple,
                          voxel_size: torch.Tensor, pts_world: torch.Tensor,
                          valid: torch.Tensor, mom_cap: int, mom_budget: int,
-                         spmd_axis=None, spmd_ndev: int = 1,
-                         spmd_pre_sliced: bool = False,
-                         spmd_dedupe: bool = False
+                         mesh=None, spmd_ndev: int | None = None,
+                         spmd_pre_sliced: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Steady-state moment insert straight into the dense torus table,
     IN PLACE; returns (dmom, n_new_cells) with n_new a device scalar.
@@ -526,16 +523,38 @@ def insert_dense_moments(dmom: torch.Tensor, dense_shape: tuple,
     new - old), which stands in for the FoV box crop.  The batch must be
     pre-grouped (<= 1 row per voxel) and the torus must span its extent;
     same-voxel duplicates after the body->world transform keep only their
-    first replace row.  The SPMD arguments belong to the multi-device
-    slice of the port and raise here."""
-    if (spmd_axis is not None or spmd_ndev != 1 or spmd_pre_sliced
-            or spmd_dedupe):
-        raise NotImplementedError(
-            "insert_dense_moments' SPMD mode is not ported yet: it comes "
-            "with the multi-device slice (torch.distributed)")
-    n = pts_world.shape[0]
+    first replace row.
+
+    mesh (a parallel.collectives.Mesh of D = spmd_ndev or mesh.size
+    ranks; `dmom` and the batch replicated): the header gather, cap test,
+    compaction and delta arithmetic run on this rank's strided rows r::D
+    with a mom_budget / D compaction (strided, so that the front-compacted
+    rows of the downsample spread evenly and a binding budget selects
+    what the one-rank ascending cap does); an all_gather brings the
+    ranks' delta rows, targets and own flags together in rank order, a
+    psum adds up n_new, and every rank applies the one identical scatter
+    (the replace-dedupe runs over the gathered rows).
+    spmd_pre_sliced: `pts_world` / `valid` already are this rank's rows
+    (ShapesConfig.spmd_local_downsample); the budget is still
+    mom_budget / D."""
     G = dmom.shape[0]
     dt = dmom.dtype
+    budget = mom_budget
+    if mesh is not None:
+        D = spmd_ndev or mesh.size
+        if mom_budget % D:
+            raise ValueError(f"mom_budget {mom_budget} does not divide by "
+                             f"the {D} ranks")
+        budget = mom_budget // D
+        if not spmd_pre_sliced:
+            n_all = pts_world.shape[0]
+            if n_all % D:
+                raise ValueError(f"{n_all} rows do not divide by the {D} "
+                                 "ranks")
+            r = mesh.rank
+            pts_world = pts_world.reshape(n_all // D, D, 3)[:, r]
+            valid = valid.reshape(n_all // D, D)[:, r]
+    n = pts_world.shape[0]
     ijk = _voxel_of(pts_world, voxel_size)
     lin = _dense_linear(dense_shape, ijk)
     tag = _alias_tag(dense_shape, ijk).to(dt)
@@ -546,7 +565,7 @@ def insert_dense_moments(dmom: torch.Tensor, dense_shape: tuple,
     cap = float(mom_cap) if mom_cap > 0 else float("inf")
     need = valid & (n_seen < cap)
 
-    sel = nonzero_static(need, mom_budget, n)
+    sel = nonzero_static(need, budget, n)
     act = sel < n
     sm = torch.clamp(sel, max=n - 1)
     lin_s = lin[sm]
@@ -555,7 +574,7 @@ def insert_dense_moments(dmom: torch.Tensor, dense_shape: tuple,
     rows = _mom_rows(q, act)
     contrib = torch.cat([tag[sm, None], rows, rows.new_zeros(sel.shape[0], 1)],
                         dim=-1)
-    own_s = own[sm]
+    own_s = own[sm] & act
     # own cell: pure accumulate (tag delta 0); stale or new cell: replace
     add_own = torch.cat([torch.zeros_like(contrib[:, :1]), contrib[:, 1:]],
                         dim=-1)
@@ -563,8 +582,13 @@ def insert_dense_moments(dmom: torch.Tensor, dense_shape: tuple,
     delta = delta * act.to(dt)[:, None]
     dst = torch.where(act, lin_s, G)
     n_new = torch.sum((act & ~own_s).to(torch.int32))
-    delta = _kill_replace_dups(dst, own_s & act, delta)
-    _add_rows(dmom, dst, delta, act)
+    if mesh is not None:
+        delta = collectives.all_gather(delta, mesh)
+        dst = collectives.all_gather(dst, mesh)
+        own_s = collectives.all_gather(own_s, mesh)
+        n_new = collectives.psum(n_new, mesh)
+    delta = _kill_replace_dups(dst, own_s, delta)
+    _add_rows(dmom, dst, delta, dst < G)
     return dmom, n_new
 
 

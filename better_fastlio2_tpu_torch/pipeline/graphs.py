@@ -19,6 +19,10 @@ PyTorch's idiom, as torch.cuda.graphs documents it:
   table) are updated in place and need no copy.  A state replaced between
   windows (a map rebuild or reset, the SLAM back end's pose feedback) is
   copied into these same tensors (`load_state`);
+* collectives of a mesh step (NCCL) are captured with it: the mesh's
+  communicator exists before the capture (parallel.collectives.make_mesh),
+  and the capture's "thread_local" error mode leaves NCCL's watchdog
+  thread free to query its events;
 * warm-up before capture on the capturing side stream.  The warm-up
   ticks are real scans (the first `steps` of the first steady window),
   run eagerly through the same tick; nothing is run twice and no
@@ -40,6 +44,7 @@ import time
 import torch
 
 from ..ops import kernels
+from ..parallel import collectives
 from ..utils.tree import tree_tensors
 
 __all__ = ["StepGraph", "graph_steps"]
@@ -107,11 +112,33 @@ class _KernelNodeParams(ctypes.Structure):
                 ("ctx", ctypes.c_void_p)]
 
 
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+               5: "empty", 6: "wait_event", 7: "event_record",
+               8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+               11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def _kernel_name(cuda, p: _KernelNodeParams) -> str:
+    """The device function name of a kernel node (its CUfunction's, or
+    its CUkernel's when the node holds no function)."""
+    name = ctypes.c_char_p()
+    if p.func:
+        err = cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+    else:
+        err = cuda.cuKernelGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(p.kern))
+    if err != 0:
+        raise RuntimeError(f"cuFuncGetName / cuKernelGetName failed ({err})")
+    return name.value.decode()
+
+
 def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
     """Nodes of the captured graph through the CUDA API of libcuda (the
-    graph must have been made with keep_graph=True): all nodes, kernel
-    nodes, and K1's kernel nodes (`fused_normal_eqs`: those whose
-    function or kernel handle is K1's)."""
+    graph must have been made with keep_graph=True): all nodes, by type,
+    kernel nodes, K1's kernel nodes (`fused_normal_eqs`: those whose
+    function or kernel handle is K1's) and NCCL's (`nccl`: kernel nodes
+    whose function name starts with "nccl", the collectives a mesh step
+    captured; NCCL may also add memcpy nodes, counted under their type)."""
     k1 = kernels.fused_normal_eqs_handles()
     cuda = ctypes.CDLL("libcuda.so.1")
     g = ctypes.c_void_p(graph.raw_cuda_graph())
@@ -121,22 +148,27 @@ def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
     nodes = (ctypes.c_void_p * n.value)()
     if cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
-    n_kernel = n_k1 = 0
+    n_k1 = n_nccl = 0
+    by_type: dict[str, int] = {}
     for node in nodes:
         kind = ctypes.c_int(-1)
         if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
                                    ctypes.byref(kind)) != 0:
             raise RuntimeError("cuGraphNodeGetType failed")
+        t = _NODE_TYPES.get(kind.value, str(kind.value))
+        by_type[t] = by_type.get(t, 0) + 1
         if kind.value != _KERNEL_NODE:
             continue
-        n_kernel += 1
         p = _KernelNodeParams()
         if cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
                                               ctypes.byref(p)) != 0:
             raise RuntimeError("cuGraphKernelNodeGetParams failed")
-        n_k1 += bool({p.func, p.kern} & k1)
-    return {"nodes": n.value, "kernel_nodes": n_kernel,
-            "fused_normal_eqs": n_k1}
+        if {p.func, p.kern} & k1:
+            n_k1 += 1
+        elif _kernel_name(cuda, p).startswith("nccl"):
+            n_nccl += 1
+    return {"nodes": n.value, "kernel_nodes": by_type.get("kernel", 0),
+            "fused_normal_eqs": n_k1, "nccl": n_nccl, "by_type": by_type}
 
 
 class StepGraph:
@@ -164,6 +196,7 @@ class StepGraph:
         # {"nodes", "kernel_nodes", "fused_normal_eqs"} of the graph
         self.nodes = None
         self.captured_launches = None  # hand-written kernel launches
+        self.captured_collectives = None  # mesh collectives at capture
         self.replays = 0
 
     def _run(self, ls, rows):
@@ -184,6 +217,7 @@ class StepGraph:
         torch.cuda.synchronize()
         before = {k: getattr(kernels, k).launches
                   for k in ("fused_normal_eqs", "fused_hth")}
+        coll0 = dict(collectives.calls)
         t0 = time.perf_counter()
         # keep the cudaGraph_t after instantiation, to count its nodes
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -209,6 +243,8 @@ class StepGraph:
         self.capture_s = time.perf_counter() - t0
         self.captured_launches = {k: getattr(kernels, k).launches - v
                                   for k, v in before.items()}
+        self.captured_collectives = {k: collectives.calls[k] - v
+                                     for k, v in coll0.items()}
         self.graph = graph
         self.nodes = _node_counts(graph)
         return self.ls, infos

@@ -23,10 +23,10 @@ Ported: the fused single-association solve (slice 1), the ESIKF row path
 5-NN warmup program, the budgeted moment inserts, mom_dense, the
 compacted solve), the windowed, pipelined, quantized mode (slice 4) and
 the map rebuild at the kd_step cadence with the map reset after a loop
-correction (slice 5), and LOAM plane-feature extraction on the host
+correction (slice 5), LOAM plane-feature extraction on the host
 (`preprocess.feature_extract_enable`, io/features.py) with the C++
-wire packer of io/native.py.  Mesh mode raises NotImplementedError
-naming the work that brings it.
+wire packer of io/native.py, and the SPMD window step over a
+torch.distributed mesh (`mesh=`, slice 8; parallel/sharded.py).
 
 The filter state is replaced between scans in one way, the `ls`
 property's setter: the rebuild, the map reset and the SLAM back end's
@@ -53,6 +53,7 @@ from ..io import native
 from ..io.features import feature_filter
 from ..map import voxel_hash
 from ..ops.downsample import voxel_downsample
+from ..parallel import collectives
 from ..utils import so3
 from ..utils.device import (readback_async, readback_wait, resolve_device,
                             to_host)
@@ -174,7 +175,8 @@ def _mom_dense_window(cfg: LIOConfig) -> tuple[float, float, float]:
 
 
 def make_step_fn(cfg: LIOConfig, device: torch.device,
-                 plane_cache: bool | None = None):
+                 plane_cache: bool | None = None, mesh=None,
+                 ndev: int | None = None):
     """The one-scan tick on `device`:
 
     step(ls, pts, pt_t, pt_valid, imu_b, last_end_rel, scan_end_t,
@@ -207,7 +209,25 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
     the steady program: its crop skips the points, its insert takes the
     budgets and touches only the moments (moments_only), or, with
     mom_dense, writes only the dense moment table and the crop is
-    replaced by torus-wrap forgetting."""
+    replaced by torus-wrap forgetting.
+
+    mesh (a parallel.collectives.Mesh of D = ndev or mesh.size ranks; the
+    reference's _make_step_core(spmd_axis, spmd_ndev), :98-375): the
+    step is one rank's program of the SPMD window step.  The map and the
+    filter state are replicated; `pts` / `pt_t` / `pt_valid` are this
+    rank's contiguous 1/D shard of the raw scan.  It undistorts the
+    shard and all_gathers the batch (rank order = row order), runs the
+    replicated downsample, associates and solves on its contiguous 1/D
+    slice of the downsampled rows (start = rank * n_ds / D) with the
+    Gram and the steering counts psum'd per pass, and the dense-moment
+    insert shares its arithmetic (insert_dense_moments' mesh mode, the
+    budget rounded up to a multiple of D).  With
+    ShapesConfig.spmd_local_downsample the steady program downsamples
+    each shard to n_ds / D rows instead and psums the valid count.  At
+    D = 1 every collective is an identity and the results are the
+    one-device step's.  ndev > mesh.size (the reference's override_ndev,
+    timing only) runs one rank's share of a D-rank program on this mesh:
+    its results are partial by construction."""
     check_config(cfg)
     sh, mp, kd = cfg.shapes, cfg.mapping, cfg.ikdtree
     dtype = _DTYPES[cfg.dtype]
@@ -222,6 +242,11 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
     eff_pc = kd.plane_cache if plane_cache is None else plane_cache
     steady = eff_pc and kd.plane_cache_warmup > 0
     mom_dense = steady and kd.mom_dense
+    D = (ndev or mesh.size) if mesh is not None else 1
+    if sh.n_raw % D or sh.n_ds % D:
+        raise ValueError(f"SPMD mode needs n_raw and n_ds divisible by the "
+                         f"rank count (got {sh.n_raw}/{sh.n_ds} over {D})")
+    local_ds = mesh is not None and mom_dense and sh.spmd_local_downsample
     if mom_dense:
         clip_hw = torch.tensor(_mom_dense_window(cfg), dtype=dtype,
                                device=device)
@@ -232,7 +257,9 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
 
     def update(ls, x_prop, P_prop, pts_ds, ds_valid, n_valid):
         """(x_post, P_post, n_eff) of the iterated update, gated by
-        laserMapping.cpp:2347 (ekf inited, >= 5 downsampled points)."""
+        laserMapping.cpp:2347 (ekf inited, >= 5 downsampled points);
+        pts_ds / ds_valid are this rank's rows under a mesh, n_valid the
+        global count."""
         def run():
             measure, aux0 = measurement.make_measure_fn(
                 ls.map, pts_ds, ds_valid,
@@ -244,13 +271,14 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
                 plane_cache=eff_pc,
                 fused_solve=kd.fused_solve,
                 early_converge=kd.early_converge,
-                solve_compact=sh.solve_compact,
+                solve_compact=sh.solve_compact // D,
                 assoc_cells=sh.assoc_cells,
+                psum=mesh,
             )
             with record_function("lio.update"):
                 x_u, P_u, _, info_u = esikf.update_iterated(
                     x_prop, P_prop, measure, aux0,
-                    max_iter=kd.max_iteration, n_cols=n_cols)
+                    max_iter=kd.max_iteration, n_cols=n_cols, psum=mesh)
             return x_u, P_u, info_u["n_eff"].to(dtype)
 
         zero = torch.zeros((), dtype=dtype, device=device)
@@ -278,6 +306,11 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
                 ls.x, ls.P, imu_b, Q, acc_norm, last_end_rel, scan_end_t,
                 ls.last_acc_w, ls.last_gyr_b)
             pts_body = imu.undistort(x_prop, poses, pts, pt_t)
+        if mesh is not None and not local_ds:
+            # the full undistorted batch from the ranks' shards (rank
+            # order is row order; exact rows)
+            pts_body = collectives.all_gather(pts_body, mesh)
+            pt_valid = collectives.all_gather(pt_valid, mesh)
 
         # ---- local map FoV crop around the lidar position -----------------
         with record_function("lio.fov_crop"):
@@ -289,13 +322,23 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
         # ---- scan downsample ---------------------------------------------
         with record_function("lio.downsample"):
             pts_ds, ds_valid = voxel_downsample(
-                pts_body, pt_valid, mp.surf_leaf_size, out_size=sh.n_ds,
+                pts_body, pt_valid, mp.surf_leaf_size,
+                out_size=sh.n_ds // D if local_ds else sh.n_ds,
                 packed_key=packed_key, drop_high_z=sh.ds_drop_high_z)
 
         # ---- iterated ESIKF update ----------------------------------------
         n_valid = torch.sum(ds_valid.to(torch.int32))
-        x_post, P_post, n_eff = update(ls, x_prop, P_prop, pts_ds, ds_valid,
-                                       n_valid)
+        if local_ds:  # the global count: the gate is the same on every rank
+            n_valid = collectives.psum(n_valid, mesh)
+        pts_meas, val_meas = pts_ds, ds_valid
+        if mesh is not None and not local_ds:
+            # this rank associates and solves its contiguous 1/D slice
+            n_loc = sh.n_ds // D
+            start = mesh.rank * n_loc
+            pts_meas = pts_ds[start:start + n_loc]
+            val_meas = ds_valid[start:start + n_loc]
+        x_post, P_post, n_eff = update(ls, x_prop, P_prop, pts_meas,
+                                       val_meas, n_valid)
 
         # ---- map incremental insert --------------------------------------
         with record_function("lio.insert"):
@@ -307,10 +350,12 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
                 # warmup left them
                 ins_valid = ds_valid & torch.all(
                     torch.abs(pts_world - pos_lid) <= clip_hw, dim=-1)
+                budget = max(sh.insert_mom_budget, 1024)
                 voxel_hash.insert_dense_moments(
                     ls.map.dmom, dshape, ls.map.voxel_size, pts_world,
                     ins_valid, mom_cap=kd.mom_cap,
-                    mom_budget=max(sh.insert_mom_budget, 1024))
+                    mom_budget=-(-budget // D) * D,  # divisible by D
+                    mesh=mesh, spmd_ndev=D, spmd_pre_sliced=local_ds)
                 m = ls.map
             else:
                 has_mom = ls.map.mom is not None
@@ -351,7 +396,9 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
             info_vec = torch.where(scan_valid, info_vec, 0.0)
         return ls, info_vec
 
-    step.sync_free = fused and mom_dense
+    # a gloo mesh stages its collectives through the host
+    step.sync_free = fused and mom_dense and (mesh is None
+                                              or mesh.capturable)
     return step
 
 
@@ -531,12 +578,31 @@ class LIOPipeline:
         readback_depth=D (pipelined window mode) keeps up to D windows'
         readbacks pending before consuming them together.
 
-        mesh: not ported (ROADMAP item 14, torch.distributed)."""
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh mode is not ported yet: it comes with ROADMAP item 14 "
-                "(multi-device SPMD over torch.distributed)")
+        mesh (a parallel.collectives.Mesh; window > 1 and the unquantized
+        wire only, as in the reference): every tick is one rank's program
+        of the SPMD window step (make_step_fn(mesh=...),
+        parallel.sharded.make_spmd_window_step_fn): the map and the
+        filter state replicated, the per-point work shared by rows, the
+        Gram summed over the ranks each pass.  Every rank's pipeline is
+        handed the same scans, as every JAX process is, and ships only its
+        rows [r n_raw / D, (r + 1) n_raw / D) of each scan to its device.
+        The 5-NN warmup program and the steady program both run under the
+        mesh.  On an NCCL mesh the steady program is captured and replayed
+        as a CUDA graph, its collectives inside; a gloo mesh stages its
+        collectives through the host, so its ticks run eagerly (the rule
+        follows the group's backend, Mesh.capturable).  The device is the
+        mesh's."""
+        if mesh is not None and (int(window) <= 1 or quantized):
+            raise ValueError("mesh mode: use window > 1 and the unquantized "
+                             "wire")
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None and device is not None:
+            dev = resolve_device(device)
+            if dev.type != mesh.device.type or dev.index not in (
+                    None, mesh.device.index):
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device}")
         if int(window) < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.cfg = cfg
@@ -549,7 +615,9 @@ class LIOPipeline:
         self.unroll = max(1, int(unroll))
         self.pipelined = bool(pipelined)
         self.readback_depth = max(1, int(readback_depth))
-        self._step = make_step_fn(cfg, self.device)  # validates cfg
+        # scan rows shipped to this device (this rank's shard under a mesh)
+        self._n_pts = cfg.shapes.n_raw // (mesh.size if mesh else 1)
+        self._step = make_step_fn(cfg, self.device, mesh=mesh)  # validates
         kd = cfg.ikdtree
         # plane-cache warmup: the 5-NN association for the first scans,
         # while the moment cache densifies (its n >= 5 gate starves on a
@@ -557,7 +625,7 @@ class LIOPipeline:
         self._warmup_scans = kd.plane_cache_warmup if kd.plane_cache else 0
         if self._warmup_scans > 0:
             self._step_warm = make_step_fn(cfg, self.device,
-                                           plane_cache=False)
+                                           plane_cache=False, mesh=mesh)
         if kd.mom_dense and not (self._warmup_scans > 0
                                  and cfg.shapes.map_dense_log2 is not None):
             raise ValueError("mom_dense requires plane_cache, "
@@ -573,7 +641,7 @@ class LIOPipeline:
             # the graph holds this view; a bound method would tie it and
             # the pipeline into a cycle that only the cyclic GC frees
             self._view = functools.partial(
-                _view_window, n_raw=cfg.shapes.n_raw, n_imu=cfg.shapes.n_imu,
+                _view_window, n_raw=self._n_pts, n_imu=cfg.shapes.n_imu,
                 quantized=self.quantized)
             self._tick = _make_tick(cfg, self._step, self.quantized)
             if self._warmup_scans > 0:
@@ -766,6 +834,10 @@ class LIOPipeline:
                 self._wbuf.append(self._pack_quant(
                     P, T, V, A, G, Tt, Mk, last_end_rel, scan_end_t))
             else:
+                if self.mesh is not None:  # this rank's rows only
+                    rows = slice(self.mesh.rank * self._n_pts,
+                                 (self.mesh.rank + 1) * self._n_pts)
+                    P, T, V = P[rows], T[rows], V[rows]
                 self._wbuf.append((P, T, V, A, G, Tt, Mk, last_end_rel,
                                    scan_end_t))
             if len(self._wbuf) == self.window:
@@ -862,7 +934,7 @@ class LIOPipeline:
         pt_valid | imu acc | gyr | t | mask | last_end_rel | scan_end_t |
         scan_valid].  Rows past the buffered scans are zeros (scan_valid
         0), as the reference pads the tail."""
-        W, (n, m) = self.window, (self.cfg.shapes.n_raw, self.cfg.shapes.n_imu)
+        W, (n, m) = self.window, (self._n_pts, self.cfg.shapes.n_imu)
         if self.quantized:
             L, Lp = 3 * n + n // 2, _bulk_cols(n)
             R, dt = Lp + 2 * (8 * m + 4), torch.int16

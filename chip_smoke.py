@@ -160,14 +160,39 @@ Phases (any failure exits non-zero and prints no result line):
                library built and loaded, and the window phases' rows all
                packed by it; seconds of each subcommand, of writing and
                of loading the directory;
- 19. library_graph — the library calls' device time per call (graph
+ 19. spmd_room_window — the SPMD window step (slice 8) at world size 1
+               under NCCL in this process: bench_room_window's
+               configuration unquantized (a mesh takes the unquantized
+               wire), W = 8, unroll 8, the 240 room scans through
+               LIOPipeline(mesh=), the steady windows replaying one graph
+               with the collectives captured in it, beside the same scans
+               without a mesh (`spmd_ref_room_window`); the trajectories
+               within 1e-6 m (bit-identical expected), the room gate, 0
+               torch syncs in the steady windows, the graph's kernel,
+               K1, NCCL and memcpy nodes a tick and the collectives a
+               tick runs, K1 held to plain on a live warmup call and in
+               the graph; then one rank's share of a 2- and a 4-rank
+               program (override_ndev) timed on 48 scans, not gated;
+ 20. spmd_two_rank — two ranks sharing the card through
+               parallel/launch.py (gloo: collectives staged through the
+               host, eager ticks, "graphed": false): the SPMD window step
+               over the first 64 room scans, both ranks bit-identical and
+               within 2e-3 m of phase 19, K1 at n_ds / 2 held to plain in
+               each rank; then the ownership-sharded step over 24 scans,
+               both ranks bit-identical, K2 (6 columns) at n_ds / 2 held
+               to plain, it and a one-rank run (this process, the NCCL
+               mesh) held to the reference test's gate (ATE < 0.15 m, end
+               < 0.2 m); a rank that fails, hangs or times out fails the
+               smoke;
+ 21. library_graph — the library calls' device time per call (graph
                replay), after the paths so that the cuBLAS workspace of
                the capturing stream does not count in their peak memory;
- 20. one_launch — under torch.profiler, one call of K1 and of K2 in each
+ 22. one_launch — under torch.profiler, one call of K1 and of K2 in each
                mode runs exactly one device kernel (run last, so that the
                profiler cannot touch the timed paths).
 
 `python chip_smoke.py --only-slam` runs the build and phases 11-13 alone,
+`--only-spmd` the build, `bench_room` and phases 19-20,
 `--only-perception` the build, phases 14-17 and the slam phase whose
 keyframes the apps take, and `--only-cli` the build and phase 18 (with
 no window phase to count packed rows); none prints a result line
@@ -836,9 +861,17 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
 
 
 def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
-                    per_scan: dict) -> dict:
+                    per_scan: dict, quantized: bool = True, mesh=None,
+                    window: int | None = None,
+                    warm_probe: list | None = None) -> dict:
     """Drive LIOPipeline as bench.py:388-389 does (pipelined, window W,
-    quantized, unroll min(W, 8)) over `groups` and check it.
+    quantized, unroll min(W, 8)) over `groups` and check it.  With
+    quantized=False the unquantized wire, with `mesh` the SPMD window
+    step over that mesh (LIOPipeline(mesh=...)), `window` W (default:
+    WINDOW of the workload in `name`).  `warm_probe`, a list, receives the
+    inputs and outputs of K1's first call with live lanes (G != 0; the
+    warmup program's, eager).
+    The returned dict also holds the trajectory ("traj", not printed).
 
     The warmup windows run eagerly; the first steady window warms up on
     its first graph's worth of scans and captures the steady step as a
@@ -868,7 +901,7 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
     from better_fastlio2_tpu_torch.utils.device import host_syncs
 
-    W = WINDOW[name.split("_")[1]]
+    W = window or WINDOW[name.split("_")[1]]
     real = kernels.fused_normal_eqs
     spare: list[list] = []  # zeroed probe buffers, one per tick and width
     probes: list[list] = []  # K1 (soa, params, G, mv) of each tick's pass 0
@@ -876,6 +909,11 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
 
     def spy(soa, params):
         out = real(soa, params)
+        if (warm_probe is not None and not warm_probe
+                and pipe.ls.map.dmom is None  # the warmup program
+                and bool(torch.any(out[0] != 0))):
+            warm_probe.append((soa.clone(), params.clone(),
+                               *(o.clone() for o in out)))
         if pipe.graph is None or soa.shape[1] in seen:
             return out  # not a steady tick's pass 0
         seen.add(soa.shape[1])
@@ -891,8 +929,8 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         return out
 
     t_run = time.perf_counter()
-    pipe = LIOPipeline(cfg, pipelined=True, window=W, quantized=True,
-                       unroll=min(W, 8))
+    pipe = LIOPipeline(cfg, pipelined=True, window=W, quantized=quantized,
+                       unroll=min(W, 8), mesh=mesh)
     tick = pipe._tick  # the steady tick the graph captures
 
     def probed_tick(*args):
@@ -929,7 +967,7 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         measurement.fused_normal_eqs = real
     # every scan after the IMU init is packed once, by the C++ packer
     packed = native.pack_quant_bulk.calls
-    if packed != len(groups) - 1:
+    if quantized and packed != len(groups) - 1:
         fail(f"{name}: the C++ packer packed {packed} of "
              f"{len(groups) - 1} rows")
     peak = torch.cuda.max_memory_allocated()
@@ -980,6 +1018,7 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         fail(f"{name}: {replays} graph replays, {expected} expected")
     nodes = graph.nodes
     capture_s = graph.capture_s
+    coll = graph.captured_collectives
     probed = chain_device_ms(pipe, groups, W)
     # the pipeline's own graph, captured anew without the K1 probes
     del graph
@@ -999,6 +1038,11 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         "capture_s_unprobed": pipe.graph.capture_s,
         "graph_nodes_per_step": nodes["nodes"] / steps,
         "graph_kernel_nodes_per_step": nodes["kernel_nodes"] / steps,
+        "graph_k1_nodes_per_step": k1_nodes / steps,
+        "graph_nccl_kernel_nodes_per_step": nodes["nccl"] / steps,
+        "graph_nodes_by_type": nodes["by_type"],
+        "collectives_per_step": {
+            k: v / steps for k, v in coll.items()},
         "graph_kernel_nodes_per_step_unprobed": (
             pipe.graph.nodes["kernel_nodes"] / steps),
         "k1_launches_per_steady_scan": k1_nodes / steps,
@@ -1018,8 +1062,27 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         "k1_graph_checks": by_width,
         "checks": checks,
     }
+    if mesh is not None:
+        out.update(mesh={"size": mesh.size, "backend": mesh.backend},
+                   graphed=True)
     print(json.dumps(out), flush=True)
+    out["traj"] = traj
     return out
+
+
+def window_entry(pipe, g, last_end_rel: float = 0.0):
+    """One scan as the pipeline buffers it for a window: the quantized
+    (bulk, meta) rows, or the unquantized tuple with this rank's point
+    rows."""
+    P, T, V = pipe._pad_points(g["pts"], g["pt_t"])
+    imu_rows = pipe._pad_imu(g["imu_acc"], g["imu_gyr"], g["imu_t"])
+    if pipe.quantized:
+        return pipe._pack_quant(P, T, V, *imu_rows, last_end_rel,
+                                float(g["scan_end_t"]))
+    r = pipe.mesh.rank if pipe.mesh is not None else 0
+    rows = slice(r * pipe._n_pts, (r + 1) * pipe._n_pts)
+    return (P[rows], T[rows], V[rows], *imu_rows, last_end_rel,
+            float(g["scan_end_t"]))
 
 
 def chain_device_ms(pipe, groups, W) -> dict:
@@ -1036,10 +1099,7 @@ def chain_device_ms(pipe, groups, W) -> dict:
     wins = []
     for c in range(CHAIN_WINDOWS):
         lo = len(groups) - (CHAIN_WINDOWS - c) * W
-        rows = [pipe._pack_quant(
-            *pipe._pad_points(g["pts"], g["pt_t"]),
-            *pipe._pad_imu(g["imu_acc"], g["imu_gyr"], g["imu_t"]),
-            0.0, float(g["scan_end_t"])) for g in groups[lo:lo + W]]
+        rows = [window_entry(pipe, g) for g in groups[lo:lo + W]]
         wins.append(pipe._pack_window(rows).to("cuda"))
     pipe._run_graph(wins[0])  # warm
     torch.cuda.synchronize()
@@ -2784,6 +2844,311 @@ def phase_cli(groups, card: str, native_rows: dict | None,
     return out
 
 
+# ---- slice 8: the SPMD window step over torch.distributed ----------------
+
+SPMD_WINDOW = 8  # bench.py's room window, unquantized under a mesh
+OVERRIDE_NDEV = (2, 4)  # one rank's share of a D-rank program, timed
+OVERRIDE_SCANS = 48
+TWO_RANK_SCANS = 64  # init + 15 warmup scans (two windows) + 6 windows
+SHARDED_SCANS = 25  # init + 24 ticks of the ownership-sharded step
+TWO_RANK_TOL_M = 2e-3  # tests/test_spmd_step.py:91
+SHARDED_GATE = {"ate_m": 0.15, "end_err_m": 0.2}  # tests/test_sharded.py
+
+
+def nccl_mesh():
+    """A one-rank NCCL group in this process on its card, and its mesh;
+    NCCL's absence or a failed init fails the smoke."""
+    import socket
+
+    from better_fastlio2_tpu_torch.parallel.collectives import make_mesh
+    from better_fastlio2_tpu_torch.parallel.distributed import \
+        init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda",
+                         timeout_s=300.0)
+        return make_mesh(device="cuda")
+    except Exception as e:  # reported, and the smoke fails
+        fail(f"spmd_room_window: the NCCL group did not start: {e!r}")
+
+
+def _clone_state(a):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, tuple):
+        return type(a)(*(_clone_state(x) for x in a))
+    return a
+
+
+def override_device_ms(cfg, pipe, groups, ndev: int) -> dict:
+    """Device ms per scan of one rank's share of an ndev-rank SPMD window
+    program (make_spmd_window_step_fn(override_ndev=ndev), the
+    reference's scaling hook) on this one-rank mesh: captured as a CUDA
+    graph of SPMD_WINDOW ticks from a copy of the pipeline's final state,
+    then the windows of the last OVERRIDE_SCANS scans replayed back to
+    back with CUDA events around them (median of 5 groups; the first
+    window warms up and captures).  Its outputs are 1/ndev-partial: it
+    is timed, not gated."""
+    import torch
+
+    from better_fastlio2_tpu_torch.parallel.sharded import \
+        make_spmd_window_step_fn
+    from better_fastlio2_tpu_torch.pipeline import graphs, lio
+
+    W = SPMD_WINDOW
+    ls = _clone_state(pipe.ls)
+    wstep = make_spmd_window_step_fn(cfg, pipe.mesh, W, ls, unroll=W,
+                                     override_ndev=ndev)
+    view = functools.partial(lio._view_window, n_raw=pipe._n_pts,
+                             n_imu=cfg.shapes.n_imu, quantized=False)
+    sg = graphs.StepGraph(wstep, view, W, pipe._acc_t)
+    n_win = OVERRIDE_SCANS // W
+    wins = [pipe._pack_window([window_entry(pipe, g) for g in
+                               groups[len(groups) - (n_win - c) * W:][:W]]
+                              ).to("cuda") for c in range(n_win)]
+    sg.warm_up_and_capture(ls, wins[0])
+    torch.cuda.synchronize()
+    group_ms = []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for w in wins[1:]:
+            sg.replay(w)
+        e.record()
+        e.synchronize()
+        group_ms.append(s.elapsed_time(e) / ((n_win - 1) * W))
+    out = {"override_ndev": ndev, "scans": OVERRIDE_SCANS,
+           "device_ms_per_scan": float(np.median(group_ms)),
+           "device_ms_groups": group_ms,
+           "k1_nodes_per_step": sg.nodes["fused_normal_eqs"] / W,
+           "kernel_nodes_per_step": sg.nodes["kernel_nodes"] / W}
+    del sg
+    return out
+
+
+def phase_spmd_room_window(groups, bench_room: dict, mesh) -> dict:
+    """The SPMD window step at world size 1 under NCCL (slice 8):
+    bench_config("room") at bench.py's full shapes, W = 8 unquantized,
+    unroll 8, all room scans, through LIOPipeline(mesh=) and, beside it,
+    through the window pipeline without a mesh (both run_window_path: the
+    steady windows replay one captured CUDA graph under sync debug
+    "error", K1's calls inside it held against the plain version, K1 on
+    an eager warmup call too).  The two trajectories equal (one rank:
+    the collectives are identities), held to 1e-6 m; the room gate; the
+    graph's nodes per tick with K1's and NCCL's apart and the
+    collectives each tick runs; then one rank's share of a 2- and a
+    4-rank program timed (override_ndev)."""
+    import torch
+
+    cfg = bench_config("room")
+    ref = run_window_path("spmd_ref_room_window", cfg, groups, 0.030, 0.15,
+                          bench_room, quantized=False, window=SPMD_WINDOW)
+    ref_traj = ref.pop("traj")
+    warm = []  # K1's first call, the warmup program's, against plain
+    res = run_window_path("spmd_room_window", cfg, groups, 0.030, 0.15,
+                          bench_room, quantized=False, mesh=mesh,
+                          window=SPMD_WINDOW, warm_probe=warm)
+    traj = res.pop("traj")
+    n_loc = cfg.shapes.n_ds // mesh.size
+    if not warm or warm[0][0].shape[1] != n_loc:
+        fail(f"spmd_room_window: no live K1 call of the warmup program at "
+             f"the rank's width {n_loc}")
+    warm_check = compare_k1(*warm[0])
+    if traj.shape != ref_traj.shape:
+        fail(f"spmd_room_window: {traj.shape} rows against the non-mesh "
+             f"run's {ref_traj.shape}")
+    diff = float(np.abs(traj[:, :3] - ref_traj[:, :3]).max())
+    if diff > 1e-6:
+        fail(f"spmd_room_window: {diff:.3e} m from the non-mesh window "
+             "pipeline (> 1e-6 m)")
+    if res["graph_nccl_kernel_nodes_per_step"] + res["graph_nodes_by_type"].get(
+            "memcpy", 0) == 0 and not any(res["collectives_per_step"].values()):
+        fail("spmd_room_window: the captured graph ran no collective")
+    # the pipeline of this phase is gone; a fresh one for the overrides
+    from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+
+    pipe = LIOPipeline(cfg, pipelined=True, window=SPMD_WINDOW,
+                       unroll=SPMD_WINDOW, mesh=mesh)
+    for g in groups[:len(groups) - OVERRIDE_SCANS]:
+        pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
+                          g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
+    pipe.flush()
+    overrides = [override_device_ms(cfg, pipe, groups, d)
+                 for d in OVERRIDE_NDEV]
+    del pipe
+    torch.cuda.empty_cache()
+    out = {
+        "phase": "spmd_room_window_summary",
+        "mesh": {"size": mesh.size, "backend": mesh.backend},
+        "traj_max_diff_vs_non_mesh_m": diff,
+        "ms_per_scan_steady": res["ms_per_scan_steady"],
+        "ms_per_scan_steady_non_mesh": ref["ms_per_scan_steady"],
+        "device_ms_per_scan": res["device_ms_per_scan"],
+        "device_ms_per_scan_non_mesh": ref["device_ms_per_scan"],
+        "graph_kernel_nodes_per_step": res[
+            "graph_kernel_nodes_per_step_unprobed"],
+        "graph_kernel_nodes_per_step_non_mesh": ref[
+            "graph_kernel_nodes_per_step_unprobed"],
+        "graph_k1_nodes_per_step": res["graph_k1_nodes_per_step"],
+        "graph_nccl_kernel_nodes_per_step": res[
+            "graph_nccl_kernel_nodes_per_step"],
+        "graph_nodes_by_type": res["graph_nodes_by_type"],
+        "graph_nodes_by_type_non_mesh": ref["graph_nodes_by_type"],
+        "collectives_per_step": res["collectives_per_step"],
+        "torch_syncs_per_steady_window": res[
+            "torch_syncs_per_steady_window"],
+        "max_memory_allocated": res["max_memory_allocated"],
+        "ate_m": res["ate_m"], "end_err_m": res["end_err_m"],
+        "k1_warmup_check": warm_check,
+        "override_ndev": overrides,
+    }
+    print(json.dumps(out), flush=True)
+    return {"spmd": res, "ref": ref, "traj": traj,
+            "checks": res["checks"] + [warm_check], "summary": out}
+
+
+def _launch(argv: list[str], out_path: str, timeout: float) -> dict:
+    """parallel/launch.py with `argv` in a subprocess (its ranks share
+    this card through gloo); a rank that fails, hangs or times out fails
+    the smoke."""
+    cmd = [sys.executable, "-m", "better_fastlio2_tpu_torch.parallel.launch",
+           *argv, "--device", "cuda", "--backend", "gloo",
+           "--timeout", str(timeout - 30), "--out", out_path]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=timeout, cwd=os.path.dirname(
+                                 os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired:
+        fail(f"spmd_two_rank: {' '.join(argv)} ran past {timeout} s")
+    if res.returncode != 0:
+        fail(f"spmd_two_rank: {' '.join(argv)} exited {res.returncode}:\n"
+             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def _rank_checks(name: str, report: dict, kernel: str, width: int) -> list:
+    """Each rank's recorded kernel call, held against the plain version
+    in that rank: within tolerance and at the rank's width."""
+    checks = []
+    for r in report["ranks"]:
+        (c,) = r["checks"]
+        if (c["name"] != kernel or not c.get("ok") or c.get("n") != width
+                or not c.get("max_abs_out")):
+            fail(f"{name}: rank {r['rank']}'s {kernel} check {c} (width "
+                 f"{width} expected)")
+        checks.append(c)
+    return checks
+
+
+def phase_spmd_two_rank(spmd_traj: np.ndarray, mesh) -> dict:
+    """Two ranks on the one card through parallel/launch.py, gloo on CUDA
+    tensors (staged through the host: the ticks run eagerly, no graph):
+    the SPMD window step over the first TWO_RANK_SCANS room scans at the
+    full shapes (16 warmup, then W = 8): both ranks' trajectories and
+    dense moment tables bit-identical, the trajectory within 2e-3 m of
+    the world-size-1 run, K1 at width n_ds / 2 held against its plain
+    version on one call per rank.  Then the ownership-sharded step over
+    SHARDED_SCANS scans: K2 (6 columns) at the rank's width against its
+    plain version, both ranks' poses bit-identical, and the trajectory,
+    and that of a one-rank run of the same step (in this process, on the
+    one-rank NCCL mesh), held to the gate of the reference's own test of
+    this step (tests/test_sharded.py:193-194: ATE < 0.15 m, end error
+    < 0.2 m).  The two runs' difference is printed, not held to
+    2e-3 m: each rank downsamples its own raw shard, so a voxel that
+    straddles the shards gives one centroid per rank, and the two runs
+    associate different batches (the reference's design, :357-367)."""
+    import argparse
+    import tempfile
+
+    import torch
+
+    from better_fastlio2_tpu_torch import config as tcfg
+    from better_fastlio2_tpu_torch.io import synthetic
+    from better_fastlio2_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spmd_two_rank_")
+    spmd = _launch(["--nprocs", "2", "--spmd", "--workload", "room",
+                    "--n-scans", str(TWO_RANK_SCANS), "--window",
+                    str(SPMD_WINDOW), "--check-kernels"],
+                   os.path.join(tmp, "spmd.json"), 600)
+    r0, r1 = spmd["ranks"]
+    t_r0, t_r1 = np.asarray(r0["traj"]), np.asarray(r1["traj"])
+    if not (np.array_equal(t_r0, t_r1)
+            and r0["dmom_sha256"] == r1["dmom_sha256"]):
+        fail("spmd_two_rank: the two ranks' trajectories or dense moment "
+             "tables differ")
+    if r0["graphed"] or t_r0.shape != (TWO_RANK_SCANS - 1, 7):
+        fail(f"spmd_two_rank: graphed={r0['graphed']} (a gloo mesh runs "
+             f"eagerly), {t_r0.shape} rows")
+    diff = float(np.abs(t_r0[:, :3] - spmd_traj[:len(t_r0), :3]).max())
+    if diff > TWO_RANK_TOL_M:
+        fail(f"spmd_two_rank: {diff:.3e} m from the world-size-1 run "
+             f"(> {TWO_RANK_TOL_M} m)")
+    n_loc = launch.ROOM["shapes"]["n_ds"] // 2
+    k1_checks = _rank_checks("spmd_two_rank", spmd, "fused_normal_eqs",
+                             n_loc)
+    t_spmd = time.perf_counter() - t0
+    # the ownership-sharded step, two ranks, then one rank here
+    sh2 = _launch(["--nprocs", "2", "--workload", "room", "--n-scans",
+                   str(SHARDED_SCANS), "--check-kernels"],
+                  os.path.join(tmp, "sharded.json"), 600)
+    s0, s1 = sh2["ranks"]
+    if not np.array_equal(np.asarray(s0["traj"]), np.asarray(s1["traj"])):
+        fail("sharded_step: the two ranks' poses differ")
+    k2_checks = _rank_checks("sharded_step", sh2, "fused_hth", n_loc)
+    cfg = launch.workload_config(tcfg, "room", False, "float32")
+    groups = launch.workload_sequence(synthetic, "room", SHARDED_SCANS,
+                                      spmd=False)
+    args = argparse.Namespace(check_kernels=False)
+    one = launch._run_sharded(args, cfg, groups, mesh)
+    one.pop("tables")
+    torch.cuda.empty_cache()
+    d_sh = float(np.abs(np.asarray(s0["traj"])[:, :3]
+                        - np.asarray(one["traj"])[:, :3]).max())
+    gt = np.array([g["gt_pos"] for g in groups[1:]])
+    acc_sh = {}
+    for k, t in (("two_ranks", s0["traj"]), ("one_rank", one["traj"])):
+        ate, end = accuracy(np.asarray(t), gt)
+        if not (end < SHARDED_GATE["end_err_m"]
+                and ate < SHARDED_GATE["ate_m"]):
+            fail(f"sharded_step ({k}) accuracy gate: end error {end:.4f} "
+                 f"m, ATE {ate:.4f} m (gate {SHARDED_GATE})")
+        acc_sh[k] = {"ate_m": ate, "end_err_m": end}
+    out = {
+        "phase": "spmd_two_rank", "ranks": 2, "backend": spmd["backend"],
+        "device": spmd["device"], "graphed": False,
+        "scans": TWO_RANK_SCANS, "window": SPMD_WINDOW,
+        "traj_max_diff_vs_world_size_1_m": diff,
+        "rank_seconds": [r["seconds"] for r in spmd["ranks"]],
+        "k1_launches_by_rank": [r["launches"]["fused_normal_eqs"]
+                                for r in spmd["ranks"]],
+        "k1_checks": k1_checks, "seconds": t_spmd,
+        "sharded_step": {
+            "scans": SHARDED_SCANS, "pos_max_diff_vs_one_rank_m": d_sh,
+            "accuracy": acc_sh, "gate": SHARDED_GATE,
+            "k2_launches_by_rank": [r["launches"]["fused_hth"]
+                                    for r in sh2["ranks"]],
+            "k2_launches_one_rank": one["launches"]["fused_hth"],
+            "live_voxels_by_rank": [r["live_voxels"] for r in sh2["ranks"]],
+            "rank_seconds": [r["seconds"] for r in sh2["ranks"]],
+            "k2_checks": k2_checks},
+        "seconds_total": time.perf_counter() - t0,
+    }
+    if min(out["k1_launches_by_rank"]) < 1 or min(
+            out["sharded_step"]["k2_launches_by_rank"]) < 1:
+        fail(f"spmd_two_rank: a rank launched no kernel: {out}")
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     # the smoke runs on one card: make it the only one CUDA sees
     os.environ["CUDA_VISIBLE_DEVICES"] = first_card()
@@ -2811,6 +3176,20 @@ def main() -> None:
         # a development run of the slice-7 phase alone: no result lines
         print(card, flush=True)
         phase_cli(make_bench_sequence("room", N_SCANS), card, None)
+        return
+    if "--only-spmd" in sys.argv[1:]:
+        # a development run of the slice-8 phases alone (the bench_room
+        # phase first, for its per-scan time): no result lines
+        print(card, flush=True)
+        groups = make_bench_sequence("room", N_SCANS)
+        bench_room = summarize(
+            "bench_room", run_main_path(bench_config("room"), groups),
+            "fused_normal_eqs", 0.030, 0.15,
+            program_warmup=PLANE_CACHE_WARMUP)
+        mesh = nccl_mesh()
+        spmd = phase_spmd_room_window(groups, bench_room, mesh)
+        phase_spmd_two_rank(spmd["traj"], mesh)
+        torch.distributed.destroy_process_group()
         return
     if "--only-perception" in sys.argv[1:]:
         # a development run of the slice-6 phases alone (slam runs for the
@@ -2866,6 +3245,10 @@ def main() -> None:
     del slam_pipe, slam_groups
     cli = phase_cli(groups, card, {p["phase"]: p["native_packed_rows"]
                                    for p in (room_w, outdoor_w)})
+    mesh = nccl_mesh()
+    spmd = phase_spmd_room_window(groups, bench_room, mesh)
+    two = phase_spmd_two_rank(spmd["traj"], mesh)
+    torch.distributed.destroy_process_group()
     lib = phase_library_graph()
     phase_one_launch()
     print(json.dumps({"phase": "total",
@@ -2879,14 +3262,23 @@ def main() -> None:
                         for p in (room_w, outdoor_w, slam)})
     k1_by_phase.update({k: p["k1_launches"] for k, p in perception.items()})
     k1_by_phase["cli"] = cli["k1_launches"]
-    k1_err = max([k1_err] + [c["max_abs_err"] for c in cli["k1_checks"]])
+    k1_by_phase.update({
+        "spmd_ref_room_window": spmd["ref"]["k1_launches_executed"],
+        "spmd_room_window": spmd["spmd"]["k1_launches_executed"],
+        "spmd_two_rank": sum(two["k1_launches_by_rank"])})
+    k1_err = max([k1_err] + [c["max_abs_err"] for c in cli["k1_checks"]
+                             + spmd["checks"] + spmd["ref"]["checks"]
+                             + two["k1_checks"]])
     k2_by_phase = {p["phase"]: p["launches_total"] for p in (row, row_ext)}
     k2_by_phase.update({k: p["k2_launches"] for k, p in perception.items()})
     k2_by_phase["cli"] = cli["online_relo"]["k2_launches"]
+    k2_by_phase["sharded_step"] = sum(
+        two["sharded_step"]["k2_launches_by_rank"])
     k2_err = max(c["max_abs_err"] for c in
                  k2["checks"] + row["checks"] + row_ext["checks"]
                  + [c for p in perception.values() for c in p["k2_checks"]]
-                 + cli["online_relo"]["k2_checks"])
+                 + cli["online_relo"]["k2_checks"]
+                 + two["sharded_step"]["k2_checks"])
     k2_t = k2["timing"]["ext"]
     print(card, flush=True)
     print(json.dumps({"kernels": [{

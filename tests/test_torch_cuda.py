@@ -50,6 +50,11 @@ eagerly, and over two runs; a steady window and a replay make no sync
 under torch.cuda.set_sync_debug_mode("error"); the graph's K1 kernel
 nodes match K1's calls at capture and its replays are counted; a dead
 pipeline's graph is collected before another capture, never inside it.
+
+The SPMD window step (slice 8) under a one-rank NCCL mesh: the graph
+captured with its collectives replays bit-identically to the eager ticks
+and to the window pipeline without a mesh, over two runs, and a state
+replaced between windows reaches it (StepGraph.load_state).
 """
 
 import numpy as np
@@ -1030,3 +1035,105 @@ def test_cuda_cli_mapping_deterministic_and_matches_cpu(cuda, tmp_path):
     np.testing.assert_array_equal(rows["a"][:, 0], rows["cpu"][:, 0])
     np.testing.assert_allclose(rows["a"][:, 1:4], rows["cpu"][:, 1:4],
                                rtol=0, atol=1e-2)
+
+
+# ---- slice 8: the SPMD window step under a one-rank NCCL mesh ----
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group on this process's card (its communicator
+    made eagerly by make_mesh), destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL runs on CUDA)")
+    import socket
+
+    import torch.distributed as dist
+
+    from better_fastlio2_tpu_torch.parallel.collectives import make_mesh
+    from better_fastlio2_tpu_torch.parallel.distributed import \
+        init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda",
+                     timeout_s=120.0)
+    yield make_mesh(device="cuda")
+    dist.destroy_process_group()
+
+
+def _mesh_pipe(mesh=None):
+    """The bench configuration in the SPMD window mode at small shapes:
+    W = 4, unquantized (a mesh takes the unquantized wire), pipelined,
+    two ticks per graph."""
+    return LIOPipeline(_bench_cfg(), pipelined=True, window=4, unroll=2,
+                       mesh=mesh)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_mesh_graph_matches_eager(cuda, nccl_mesh):
+    """The one-rank NCCL mesh's steady program, captured with its
+    collectives and replayed, equals the same ticks run eagerly and the
+    window pipeline without a mesh, bit for bit (one rank: every
+    collective is an identity); the graph holds K1's nodes and the
+    collectives ran at capture."""
+    from better_fastlio2_tpu_torch.parallel import collectives
+
+    groups = _bench_groups()
+    pm, pe, p0 = _mesh_pipe(nccl_mesh), _mesh_pipe(nccl_mesh), _mesh_pipe()
+    pe._graphed = False
+    before = dict(collectives.calls)
+    tm, dm = _window_run(pm, groups)
+    ran = {k: collectives.calls[k] - before[k] for k in before}
+    te, de = _window_run(pe, groups)
+    t0, d0 = _window_run(p0, groups)
+    assert pm.graph is not None and pe.graph is None and p0.graph is not None
+    assert pm.graph.nodes["fused_normal_eqs"] == \
+        pm.graph.captured_launches["fused_normal_eqs"] > 0
+    assert ran["psum"] > 0 and ran["all_gather"] > 0
+    for t, d in ((te, de), (t0, d0)):
+        np.testing.assert_array_equal(tm, t)
+        np.testing.assert_array_equal(dm, d)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_mesh_graph_is_deterministic(cuda, nccl_mesh):
+    groups = _bench_groups()
+    (t1, d1), (t2, d2) = (_window_run(_mesh_pipe(nccl_mesh), groups)
+                          for _ in range(2))
+    np.testing.assert_array_equal(t1, t2)
+    np.testing.assert_array_equal(d1, d2)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_mesh_graph_takes_replaced_state(cuda, nccl_mesh):
+    """A state replaced between windows under a mesh (the pose feedback
+    and the map reset of the SLAM back end) reaches the captured graph
+    (StepGraph.load_state): the replays after it equal the eager ticks
+    from the same state, bit for bit, and the graph is kept."""
+    groups = _bench_groups(2.4)
+    pg_, pe = _mesh_pipe(nccl_mesh), _mesh_pipe(nccl_mesh)
+    pe._graphed = False
+    for g in groups[:13]:  # init, two warmup windows, the capture window
+        pg_.process_scan(*_args(g))
+        pe.process_scan(*_args(g))
+    graph = pg_.graph
+    assert graph is not None
+    n0 = graph.replays
+    pts = pg_.ls.map.points.reshape(-1, 3)
+    pts = pts[pts[:, 0] < 1e8][:3000].cpu().numpy() + [1.0, 0.0, 0.0]
+    off = torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    for p in (pg_, pe):
+        _replaced(p, pts, off)
+    assert pg_.ls is graph.ls
+    for g in groups[13:]:
+        pg_.process_scan(*_args(g))
+        pe.process_scan(*_args(g))
+    pg_.flush()
+    pe.flush()
+    assert pg_.graph is graph and graph.replays > n0
+    np.testing.assert_array_equal(np.array(pg_.trajectory),
+                                  np.array(pe.trajectory))
+    np.testing.assert_array_equal(pg_.ls.map.dmom.cpu().numpy(),
+                                  pe.ls.map.dmom.cpu().numpy())

@@ -229,9 +229,14 @@ PORTED_IN_SLICE_4 = {
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_unsupported_options_raise(what):
+    # mesh mode is ported (slice 8); its refusals are the reference's
+    # (window > 1 and the unquantized wire), as ValueError
     cfg = slice_cfg(tcfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="window > 1"):
         LIOPipeline(cfg, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="unquantized"):
+        LIOPipeline(cfg, device="cpu", window=4, quantized=True,
+                    mesh=object())
 
 
 def test_config_matches_jax():
