@@ -13,10 +13,10 @@ normal equations the measure reduced (the LIO measure, through
 ops/kernels.fused_hth).
 
 The JAX reference runs the iteration as one lax.while_loop on the device.
-The Gram path here runs it as max_iter+1 predicated passes with no host
-read; the row path as a host loop that reads one flag per pass
-(utils.device.to_host counts it).  The reference's `_mm`/`_mv` (tiny products written as
-broadcast reduces to stay inside XLA fusions) are plain `@` here.
+Both paths here run it as max_iter+1 predicated passes with no host read
+(a finished pass freezes the carried values with torch.where).  The
+reference's `_mm`/`_mv` (tiny products written as broadcast reduces to
+stay inside XLA fusions) are plain `@` here.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch
 from ..parallel import collectives
 from ..utils import s2 as s2m
 from ..utils import so3
-from ..utils.device import to_host
 from ..utils.tree import tree_where
 from .state import ERR_DIM, NOISE_DIM, State, boxminus, boxplus, oplus_flat
 
@@ -360,10 +359,9 @@ def update_iterated(
     * otherwise the row path: normal equations from `neq` or reduced from
       the masked rows, the prior inverse once per scan, and per pass
       A = R (T P_prop T^T)^-1 + HTH in its [:K, :K] block, solved by
-      Cholesky for the K gain columns.  It keeps a host loop with one
-      read of the converged flag per pass: its measure re-associates (a
-      full 5-NN search) on every converged pass, and predicating that
-      would run the search on every pass.
+      Cholesky for the K gain columns.  Its passes are predicated the
+      same way; after pass 0 the measure gets `converged` as a device
+      bool (its re-association then searches on every pass and selects).
     The final covariance is the Joseph form, PSD by construction (the
     reference's L - K_x P cancels in f32).
 
@@ -371,11 +369,10 @@ def update_iterated(
     measure's rows are this rank's share of the scan, and every pass's
     normal equations are summed over the mesh before the replicated
     solve, on both paths.  Everything after the sum is the same on every
-    rank, so the row path's host read of the converged flag is too.
+    rank, so every rank freezes on the same pass.
 
-    Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff}
-    (device tensors on the Gram path, `iters` and `t` host ints on the
-    row path).
+    Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff},
+    device tensors (`iters` the passes the reference's loop runs).
     """
     m = measure_fn(x_prop, True, aux0)
     if m.gram is not None:
@@ -430,17 +427,22 @@ def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
 
 def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
                  limit: float, K: int, psum=None):
-    """The row path of update_iterated: a host loop, one read of the
-    converged flag per pass (utils.device.to_host counts it)."""
-    dtype = P_prop.dtype
+    """The row path of update_iterated, predicated like _update_gram:
+    pass i of the reference's while loop (:531) is pass i here, its
+    results selected in only while `done` is false."""
+    dtype, dev = P_prop.dtype, P_prop.device
     eyeP = _eye(ERR_DIM, P_prop)
     # (P_prop/R)^-1 once per scan: per pass P = T P_prop T^T with
     # block-diagonal T, so (P/R)^-1 = R Ti^T P_prop^-1 Ti
     P_sym = 0.5 * (P_prop + P_prop.T)
     Pp_inv = _cho_solve(P_sym + 1e-9 * R * eyeP, eyeP)
-    x, t, i = x_prop, 0, 0
-    while True:
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    x, carry = x_prop, None
+    for i in range(max_iter + 1):
         if i:
+            x, t, conv, aux = carry[:4]
             m = measure_fn(x, conv, aux)
         HTH, HTh, n_valid = _normal_eqs(m, dtype, K, psum)
         dx = boxminus(x, x_prop)
@@ -456,15 +458,16 @@ def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
         # (23, K) = A^-1[:, :K]; A is SPD (S_inv SPD + HTH PSD)
         P_inv12 = _cho_solve(A, eyeP[:, :K])
         dx_ = P_inv12 @ HTh + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
-
-        x = tree_where(valid, boxplus(x, dx_), x)
-        converged = bool(to_host(
-            torch.all(torch.abs(dx_) < limit) | torch.logical_not(valid)))
-        t_new = t + 1 if converged else t
-        conv = converged or (t_new == 0 and i == max_iter - 1)
-        done = t_new > 1 or i >= max_iter
-        t, aux, i = t_new, m.aux, i + 1
-        if done:
-            break
+        x_new = tree_where(valid, boxplus(x, dx_), x)
+        converged = torch.all(torch.abs(dx_) < limit) | ~valid
+        t_new = t + converged.to(torch.int32)
+        conv_new = converged | ((t_new == 0) & (i == max_iter - 1))
+        done_new = (t_new > 1) | (i >= max_iter)
+        new = (x_new, t_new, conv_new, m.aux, P, P_inv12, HTH, dx_, n_valid)
+        # pass 0 always runs (done starts false)
+        carry = new if i == 0 else tree_where(done, carry, new)
+        iters = iters + (~done).to(torch.int32)
+        done = done | done_new
+    x, t, _, aux, P, P_inv12, HTH, dx_, n_eff = carry
     P_post = _joseph(x, x_prop, P, P_inv12, HTH, dx_, R, K)
-    return x, P_post, aux, {"iters": i, "t": t, "n_eff": n_valid}
+    return x, P_post, aux, {"iters": iters, "t": t, "n_eff": n_eff}

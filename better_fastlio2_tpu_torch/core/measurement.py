@@ -21,11 +21,13 @@ or the dense moment table), then one of two solve forms.
   them to HTH / HTh with ops/kernels.fused_hth, without materialising
   them.  The association reruns on every converged pass (reference
   semantics), or once per scan with the lazy refresh under
-  single_association.  Its branches stay on the host: the lazy-refresh
-  check reads the moved count (utils.device.to_host).
+  single_association.  Its lax.cond sites are device selects too: the
+  re-association searches on every pass after the first and `converged`
+  selects its result, and the lazy refresh runs at its fixed size and
+  its trigger selects it.
 
-The moment-plane association itself reads nothing on the host when the
-map has a dense index.
+Neither form reads anything on the host, nor does the association (the
+hash probe runs its rounds predicated).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ..ops.kernels import (_OK, _VAL, SOA_CH, fused_hth, fused_normal_eqs,
                            pack_soa)
 from ..parallel import collectives
 from ..utils import so3
-from ..utils.device import nonzero_static, to_host
+from ..utils.device import nonzero_static
 from ..utils.tree import tree_where
 from .esikf import MeasurementOut
 from .state import State
@@ -288,8 +290,7 @@ class MeasureAux(NamedTuple):
     """Association cache threaded through the ESIKF passes (the analog of
     Nearest_Points / point_selected_surf, laserMapping.cpp:117,1903-1913).
     `searched` is a host bool (the association pass is pass 0, known
-    statically); `refreshed` and `use_c` are device bools in the fused
-    form, `refreshed` a host bool in the row form."""
+    statically); `refreshed` and `use_c` are device bools."""
 
     normal: torch.Tensor  # (N, 3) plane unit normals (world)
     d: torch.Tensor  # (N,) plane offsets, n·p + d = 0
@@ -330,8 +331,7 @@ def _budgeted_refresh(aux: MeasureAux, p_world, ijk_now, pts_valid,
     nothing depends on the data-dependent count and nothing is read on
     the host.  `extra_update(aux, safe, act, dst, n_s, d_s, ok_s)`
     refreshes the SoA columns in the same pass.  The caller marks the aux
-    `refreshed` (a host bool in the row form, a device bool in the fused
-    one)."""
+    `refreshed` and selects it by the trigger."""
     need = (pts_valid & aux.searched
             & torch.any(ijk_now != aux.assoc_ijk, dim=-1))
     sel = nonzero_static(need, refresh_budget, N)
@@ -398,9 +398,8 @@ def make_measure_fn(
     `pts_body` is this rank's share of the scan, and every count that
     steers a pass (the valid count, the moved count of the lazy refresh
     and of early_converge) is summed over the mesh, so that every rank
-    takes the same branch; the normal equations themselves are summed by
-    esikf.update_iterated(psum=...).  The row form sums its counts before
-    reading them on the host.
+    selects the same branch; the normal equations themselves are summed
+    by esikf.update_iterated(psum=...).
     """
 
     def search_rows(p_w, rows_valid):
@@ -433,7 +432,18 @@ def _global(count: torch.Tensor, psum) -> torch.Tensor:
 def _make_row_measure(m, pts_body, pts_valid, search_rows,
                       extrinsic_est: bool, single_association: bool,
                       refresh_budget: int, psum=None):
-    """The row-form measure closure (see make_measure_fn).
+    """The row-form measure closure (see make_measure_fn), sync-free
+    (reference :515-558): its two lax.cond sites are device selects.
+
+    The association gate: under single_association it is `not
+    aux.searched`, true on pass 0 alone (known statically: pass 0
+    searches, later passes do not); otherwise it is `converged`, which
+    is a device bool after pass 0, so every later pass searches and
+    `converged` selects the fresh association or keeps the cached one.
+    The lazy refresh (single_association) runs at its fixed size on
+    every pass after the search and `fire` selects it, as the fused form
+    does; on the search pass no row has moved, so it cannot fire there
+    and is skipped.
 
     The reference's Jacobian rows (laserMapping.cpp:1966-2002) are
     [n | p_imu x C | p_body x (R_il^T C) | C] with C = R_wi^T n.  K2 takes
@@ -445,35 +455,41 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
     columns are zero and only the leading 6x6 block is kept."""
     N = pts_body.shape[0]
     dtype = pts_body.dtype
+    dev = pts_body.device
     sqrt_body = torch.sqrt(torch.clamp(
         torch.linalg.vector_norm(pts_body, dim=-1), min=1e-8))
     lazy = single_association and refresh_budget > 0
-    n_val_scan = (int(to_host(_global(
-        torch.sum(pts_valid.to(torch.int32)), psum))) if lazy else 0)
+    if lazy:
+        n_val_scan = _global(torch.sum(pts_valid.to(torch.int32)), psum)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
 
-    def measure(s: State, converged: bool, aux: MeasureAux) -> MeasurementOut:
+    def measure(s: State, converged, aux: MeasureAux) -> MeasurementOut:
         p_rot = so3.quat_rotate(s.off_r, pts_body)
         p_imu = p_rot + s.off_t
         p_world = so3.quat_rotate(s.rot, p_imu) + s.pos
         ijk_now = voxel_hash._voxel_of(p_world, m.voxel_size)
 
+        # a host gate (pass 0 passes converged=True; single association
+        # searches on pass 0 alone) searches or not; a device gate
+        # searches and selects
         gate = not aux.searched if single_association else converged
-        if gate:
+        if gate is not False:
             # a fresh aux: nothing of an earlier pass's association leaks
             with record_function("lio.associate"):
                 n, d, ok = search_rows(p_world, pts_valid)
-            aux = MeasureAux(normal=n, d=d, fit_ok=ok, searched=True,
-                             assoc_ijk=ijk_now, refreshed=False)
-
-        if lazy and converged and not aux.refreshed:
-            need = (pts_valid & torch.any(ijk_now != aux.assoc_ijk, dim=-1))
-            n_need = int(to_host(_global(torch.sum(need.to(torch.int32)),
-                                         psum)))
-            if n_need * 20 > n_val_scan:  # > 5% of valid rows
-                with record_function("lio.refresh"):
-                    aux = _budgeted_refresh(
-                        aux, p_world, ijk_now, pts_valid, search_rows,
-                        refresh_budget, N)._replace(refreshed=True)
+            fresh = MeasureAux(normal=n, d=d, fit_ok=ok, searched=True,
+                               assoc_ijk=ijk_now, refreshed=false)
+            aux = fresh if gate is True else tree_where(gate, fresh, aux)
+        elif lazy:
+            need = pts_valid & torch.any(ijk_now != aux.assoc_ijk, dim=-1)
+            n_need = _global(torch.sum(need.to(torch.int32)), psum)
+            fire = converged & ~aux.refreshed & (n_need * 20 > n_val_scan)
+            with record_function("lio.refresh"):
+                fresh = _budgeted_refresh(
+                    aux, p_world, ijk_now, pts_valid, search_rows,
+                    refresh_budget, N)._replace(
+                        refreshed=torch.ones_like(aux.refreshed))
+            aux = tree_where(fire, fresh, aux)
 
         pd2 = torch.sum(aux.normal * p_world, dim=-1) + aux.d
         srob = 1.0 - 0.9 * torch.abs(pd2) / sqrt_body
@@ -497,11 +513,10 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
     aux0 = MeasureAux(
         normal=pts_body.new_zeros(N, 3),
         d=pts_body.new_zeros(N),
-        fit_ok=torch.zeros(N, dtype=torch.bool, device=pts_body.device),
+        fit_ok=torch.zeros(N, dtype=torch.bool, device=dev),
         searched=False,
-        assoc_ijk=torch.zeros(N, 3, dtype=torch.int32,
-                              device=pts_body.device),
-        refreshed=False,
+        assoc_ijk=torch.zeros(N, 3, dtype=torch.int32, device=dev),
+        refreshed=false,
     )
     return measure, aux0
 

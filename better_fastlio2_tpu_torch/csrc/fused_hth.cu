@@ -302,4 +302,23 @@ int fused_hth_launch(const float* pts, const float* pimu, const float* nrm,
   return (int)(e != cudaSuccess ? e : last);
 }
 
+// The kernel's handles as a captured CUDA graph's kernel nodes may name it:
+// for each instantiation (extrinsic, then not) its function in the current
+// context (a CUfunction) and its context-independent kernel (a CUkernel),
+// in func[2] and kern[2].  Returns a cudaError_t.
+int fused_hth_handles(void** func, void** kern) {
+  const void* syms[2] = {reinterpret_cast<const void*>(hth_cluster_kernel<true>),
+                         reinterpret_cast<const void*>(hth_cluster_kernel<false>)};
+  for (int i = 0; i < 2; ++i) {
+    cudaFunction_t f = nullptr;
+    cudaKernel_t k = nullptr;
+    cudaError_t e = cudaGetFuncBySymbol(&f, syms[i]);
+    if (e == cudaSuccess) e = cudaGetKernel(&k, syms[i]);
+    func[i] = reinterpret_cast<void*>(f);
+    kern[i] = reinterpret_cast<void*>(k);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 }  // extern "C"

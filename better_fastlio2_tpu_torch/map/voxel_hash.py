@@ -41,8 +41,11 @@ Translation notes:
 * The grouped insert's `lexsort` becomes stable sorts from the least
   significant key up, and its `associative_scan(maximum)` group head a
   `torch.cummax`.
-* The claim loop and the probe loop are host loops: one device->host read
-  per round (utils.device.to_host counts them).
+* The probe loop and the claim loop (the reference's early-exit
+  lax.while_loops) run a fixed `max_probe` rounds, predicated: a closed
+  probe lane keeps its slot and a resolved claim lane adds zero, so the
+  extra rounds change no bit, and nothing is read on the host (a
+  captured CUDA graph can hold them).
 * `knn_sortjoin`'s `lax.sort` over (key, is_query) with a max-carry
   `associative_scan` becomes one stable sort of the combined key and a
   `torch.cummax` over the positions of the map entries.
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 
 from ..parallel import collectives
-from ..utils.device import nonzero_static, to_host
+from ..utils.device import nonzero_static
 
 __all__ = ["VoxelHashMap", "make_map", "insert", "insert_dense_moments",
            "build_dense_moments", "knn", "knn_sortjoin", "crop_outside_box",
@@ -183,8 +186,10 @@ def _unpack_rel(key: torch.Tensor, center_ijk: torch.Tensor) -> torch.Tensor:
 def _lookup_slots(key_arr: torch.Tensor, ijk: torch.Tensor,
                   max_probe: int) -> torch.Tensor:
     """Live slot of each voxel coord by linear probing; -1 if absent.
-    Tombstones keep the chain walking, an empty key ends it.  One
-    device->host read per probe round (the early exit)."""
+    Tombstones keep the chain walking, an empty key ends it.  All
+    `max_probe` rounds run, predicated by `open_` (the reference's
+    early-exit while_loop, :280-300): a closed lane's slot never changes
+    again, so the result is the early exit's, with no host read."""
     mask = key_arr.shape[0] - 1
     h0 = _hash(ijk, mask)
     target = _pack(ijk)
@@ -196,8 +201,6 @@ def _lookup_slots(key_arr: torch.Tensor, ijk: torch.Tensor,
         hit = k == target
         slot = torch.where(open_ & hit, cand, slot)
         open_ = open_ & ~hit & (k != _KEY_EMPTY)
-        if not to_host(torch.any(open_)):
-            break
     return slot
 
 
@@ -274,6 +277,52 @@ def _mom_rows(q: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
         torch.stack([q[:, 0] * q[:, 0], q[:, 0] * q[:, 1], q[:, 0] * q[:, 2],
                      q[:, 1] * q[:, 1], q[:, 1] * q[:, 2], q[:, 2] * q[:, 2]],
                     dim=-1) * one], dim=-1)
+
+
+def _claim_slots(key_arr: torch.Tensor, h: torch.Tensor, key: torch.Tensor,
+                 idx: torch.Tensor, slot: torch.Tensor,
+                 unresolved: torch.Tensor, max_probe: int) -> torch.Tensor:
+    """The insert's claim loop (reference :458-494): each unresolved lane
+    walks its probe chain from hash `h`, resolves where the slot holds its
+    packed `key`, or claims the empty slot by scatter-min on its lane
+    index `idx` (the lowest index wins, deterministic); a loser, or a lane
+    that met another key or a tombstone, probes one slot further.  Writes
+    the claimed keys into `key_arr` IN PLACE and returns `slot` with the
+    resolved lanes set (-1 where a lane ran out of probes).
+
+    The reference's while_loop exits when no lane is unresolved; here a
+    fixed max_probe rounds run.  Each round resolves an unresolved lane
+    or advances its probe, and a lane drops out at max_probe, so
+    max_probe rounds reach the while_loop's end; a round with nothing
+    unresolved adds zero to key 0 and changes nothing."""
+    C = key_arr.shape[0]
+    hmask = C - 1
+    probe = torch.zeros_like(idx)
+    for _ in range(max_probe):
+        cand = (h + probe) & hmask
+        kcand = key_arr[cand]
+        found = unresolved & (kcand == key)
+        slot = torch.where(found, cand, slot)
+        unresolved = unresolved & ~found
+        # claim empty slots (tombstones are never reclaimed)
+        tryc = unresolved & (kcand == _KEY_EMPTY)
+        claim = torch.full((C,), _INT_MAX, dtype=torch.int64,
+                           device=key_arr.device)
+        claim.scatter_reduce_(0, torch.where(tryc, cand, 0),
+                              torch.where(tryc, idx, _INT_MAX), "amin",
+                              include_self=True)
+        won = tryc & (claim[cand] == idx)
+        # winners are unique per slot and claimed slots hold key 0, so an
+        # add is a set; losers add 0 to slot 0.  Integer index_add_ is
+        # exact in any order; index_put_(accumulate=True) would take CUDA's
+        # sort-based path (~1.4 ms a call on an H100 at the room shapes)
+        key_arr.index_add_(0, torch.where(won, cand, 0),
+                           torch.where(won, key, 0))
+        slot = torch.where(won, cand, slot)
+        unresolved = unresolved & ~won
+        probe = torch.where(unresolved, probe + 1, probe)
+        unresolved = unresolved & (probe < max_probe)
+    return slot
 
 
 def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
@@ -362,33 +411,8 @@ def insert(m: VoxelHashMap, pts_world: torch.Tensor, valid: torch.Tensor,
         h_c, key_c, idx_c = h_s, key_target, idx
         slot, unresolved = slot0, unresolved0
 
-    # claim loop: one probe round per pass, one host read per round
-    probe = torch.zeros_like(idx_c)
-    active = to_host(torch.any(unresolved))
-    while active:
-        cand = (h_c + probe) & hmask
-        kcand = key_arr[cand]
-        found = unresolved & (kcand == key_c)
-        slot = torch.where(found, cand, slot)
-        unresolved = unresolved & ~found
-        # claim empty slots (tombstones are never reclaimed)
-        tryc = unresolved & (kcand == _KEY_EMPTY)
-        claim = torch.full((C,), _INT_MAX, dtype=torch.int64, device=dev)
-        claim.scatter_reduce_(0, torch.where(tryc, cand, 0),
-                              torch.where(tryc, idx_c, _INT_MAX), "amin",
-                              include_self=True)
-        won = tryc & (claim[cand] == idx_c)
-        # winners are unique per slot and claimed slots hold key 0, so an
-        # add is a set; losers add 0 to slot 0.  Integer index_add_ is
-        # exact in any order; index_put_(accumulate=True) would take CUDA's
-        # sort-based path (~1.4 ms a call on an H100 at the room shapes)
-        key_arr.index_add_(0, torch.where(won, cand, 0),
-                           torch.where(won, key_c, 0))
-        slot = torch.where(won, cand, slot)
-        unresolved = unresolved & ~won
-        probe = torch.where(unresolved, probe + 1, probe)
-        unresolved = unresolved & (probe < max_probe)
-        active = to_host(torch.any(unresolved))
+    slot = _claim_slots(key_arr, h_c, key_c, idx_c, slot, unresolved,
+                        max_probe)
     if use_claim_budget:
         # the compacted results over the dense-hit baseline (the selected
         # rows are distinct; unselected lanes land in the sink row n)

@@ -13,8 +13,8 @@ Translation notes:
 * every `lax.scan` is a fixed-count Python loop; nothing inside reads a
   residual or the fitness on the host (callers read the result after the
   call, as the reference's SLAM front end does).  The target table's
-  claim loop and the kNN probe loop read the device once a round, as
-  everywhere in the port's hash map (utils.device.to_host counts them);
+  claim loop and the kNN probe loop run their fixed predicated rounds of
+  the port's hash map, with no host read;
 * `jnp.linalg.solve` of the damped 6x6 (and the Anderson (D-1)^2 system)
   is `torch.linalg.solve_ex`, which returns what it computed instead of
   raising on a singular matrix — the reference's `1e-6 I` damping is kept

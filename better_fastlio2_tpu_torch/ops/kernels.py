@@ -42,7 +42,8 @@ import torch
 __all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs",
            "fused_normal_eqs_reference", "fused_normal_eqs_tolerance",
            "fused_normal_eqs_handles",
-           "fused_hth", "fused_hth_reference", "fused_hth_tolerance"]
+           "fused_hth", "fused_hth_reference", "fused_hth_tolerance",
+           "fused_hth_handles"]
 
 SOA_CH = 16
 # channel indices
@@ -346,3 +347,19 @@ def fused_hth(pts_body, p_imu, normals, C, pd2, sel, extrinsic: bool = False
 
 
 fused_hth.launches = 0
+
+
+def fused_hth_handles() -> set[int]:
+    """The CUDA handles of K2's kernel, both instantiations (with
+    and without the extrinsic columns): as fused_normal_eqs_handles."""
+    from . import _build
+
+    _launcher("fused_hth")
+    fn = _build.load("fused_hth").fused_hth_handles
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2
+    fn.restype = ctypes.c_int
+    func, kern = (ctypes.c_void_p * 2)(), (ctypes.c_void_p * 2)()
+    err = fn(func, kern)
+    if err != 0 or not all(func):
+        raise RuntimeError(f"fused_hth: no kernel handle (CUDA error {err})")
+    return {h for h in (*func, *kern) if h}

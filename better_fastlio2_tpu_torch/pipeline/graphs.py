@@ -1,32 +1,34 @@
-"""Capture and replay of the sync-free steady step as a CUDA graph.
+"""Capture and replay of a sync-free step as a CUDA graph.
 
-The JAX reference runs a window of W scans as one jitted device program
-(a lax.scan of the tick, pipeline/lio.py:make_window_step_fn).  On a
-directly attached GPU its counterpart is a CUDA graph of the step: the
-graph holds `steps` consecutive ticks, captured once and replayed W/steps
-times per window, so a steady scan costs no host launches and no host
-reads.  Only a step that reads nothing on the host can be captured: the
-dense-moment steady program of the fused solve (lio.make_step_fn marks it
-`sync_free`); utils.device.to_host raises if a read slips in.
+The JAX reference runs each per-scan program as one jitted device program
+(pipeline/lio.py:_make_step_core) and a window of W scans as one program
+(a lax.scan of the tick, make_window_step_fn).  On a directly attached GPU
+their counterpart is a CUDA graph of the step: the graph holds `steps`
+consecutive ticks (one per scan in per-scan mode), captured once and
+replayed, so a scan costs no host launches and no host reads.  Only a
+step that reads nothing on the host can be captured (lio.make_step_fn
+marks it `sync_free`); utils.device.to_host raises if a read slips in.
 
 PyTorch's idiom, as torch.cuda.graphs documents it:
 * a private memory pool holds every intermediate of the captured ticks;
 * static buffers: the (steps, R) packed inputs the ticks read
-  (`static_in`), the (steps, 32) info rows they write (`static_info`), and
-  the filter state (`ls`): the ticks start from its tensors and the last
-  one's state is copied back into them with copy_, so that the replays
-  chain.  The map tables the steady program touches (the dense moment
-  table) are updated in place and need no copy.  A state replaced between
-  windows (a map rebuild or reset, the SLAM back end's pose feedback) is
-  copied into these same tensors (`load_state`);
+  (`static_in`; a replay takes the next rows in one copy, non-blocking
+  from pinned host memory), the (steps, 32) info rows they write
+  (`static_info`), and the filter state (`ls`): the ticks start from its
+  tensors and the last one's state is copied back into them with copy_,
+  so that the replays chain.  The map tables are the pipeline's own
+  tensors: a table the step updates in place needs no copy, one it
+  replaces (the FoV crop) is copied back.  A state replaced between
+  scans or windows (a map rebuild or reset, the SLAM back end's pose
+  feedback) is copied into these same tensors (`load_state`);
 * collectives of a mesh step (NCCL) are captured with it: the mesh's
   communicator exists before the capture (parallel.collectives.make_mesh),
   and the capture's "thread_local" error mode leaves NCCL's watchdog
   thread free to query its events;
 * warm-up before capture on the capturing side stream.  The warm-up
-  ticks are real scans (the first `steps` of the first steady window),
-  run eagerly through the same tick; nothing is run twice and no
-  throwaway tick touches the map.
+  ticks are real scans (the program's first scan, or the first `steps`
+  of the first steady window), run eagerly through the same tick;
+  nothing is run twice and no throwaway tick touches the map.
 
 Capture failures raise; nothing falls back to eager execution.  The
 cyclic garbage collector is held during capture: freeing another, dead
@@ -47,9 +49,18 @@ from ..ops import kernels
 from ..parallel import collectives
 from ..utils.tree import tree_tensors
 
-__all__ = ["StepGraph", "graph_steps"]
+__all__ = ["StepGraph", "graph_steps", "KERNELS", "captured", "replayed"]
 
 _KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
+# the hand-written kernels a step may launch, counted in the graph by the
+# handles of their device functions
+KERNELS = ("fused_normal_eqs", "fused_hth")
+# each kernel's wrapper calls made while a StepGraph captured (they launch
+# nothing then), and the launches StepGraph replays ran (each graph's
+# kernel nodes of the kernel, once a replay): the launches that ran are
+# the wrappers' counts less the first plus the second
+captured = dict.fromkeys(KERNELS, 0)
+replayed = dict.fromkeys(KERNELS, 0)
 
 
 def graph_steps(window: int, unroll: int) -> int:
@@ -135,11 +146,12 @@ def _kernel_name(cuda, p: _KernelNodeParams) -> str:
 def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
     """Nodes of the captured graph through the CUDA API of libcuda (the
     graph must have been made with keep_graph=True): all nodes, by type,
-    kernel nodes, K1's kernel nodes (`fused_normal_eqs`: those whose
-    function or kernel handle is K1's) and NCCL's (`nccl`: kernel nodes
-    whose function name starts with "nccl", the collectives a mesh step
-    captured; NCCL may also add memcpy nodes, counted under their type)."""
-    k1 = kernels.fused_normal_eqs_handles()
+    kernel nodes, K1's and K2's kernel nodes (`fused_normal_eqs`,
+    `fused_hth`: those whose function or kernel handle is the kernel's)
+    and NCCL's (`nccl`: kernel nodes whose function name starts with
+    "nccl", the collectives a mesh step captured; NCCL may also add
+    memcpy nodes, counted under their type)."""
+    handles = {k: getattr(kernels, f"{k}_handles")() for k in KERNELS}
     cuda = ctypes.CDLL("libcuda.so.1")
     g = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -148,7 +160,8 @@ def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
     nodes = (ctypes.c_void_p * n.value)()
     if cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
         raise RuntimeError("cuGraphGetNodes failed")
-    n_k1 = n_nccl = 0
+    n_nccl = 0
+    n_k = dict.fromkeys(KERNELS, 0)
     by_type: dict[str, int] = {}
     for node in nodes:
         kind = ctypes.c_int(-1)
@@ -163,12 +176,13 @@ def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
         if cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
                                               ctypes.byref(p)) != 0:
             raise RuntimeError("cuGraphKernelNodeGetParams failed")
-        if {p.func, p.kern} & k1:
-            n_k1 += 1
+        mine = [k for k, h in handles.items() if {p.func, p.kern} & h]
+        if mine:
+            n_k[mine[0]] += 1
         elif _kernel_name(cuda, p).startswith("nccl"):
             n_nccl += 1
     return {"nodes": n.value, "kernel_nodes": by_type.get("kernel", 0),
-            "fused_normal_eqs": n_k1, "nccl": n_nccl, "by_type": by_type}
+            **n_k, "nccl": n_nccl, "by_type": by_type}
 
 
 class StepGraph:
@@ -193,7 +207,7 @@ class StepGraph:
         self.static_in = None
         self.static_info = None
         self.capture_s = None
-        # {"nodes", "kernel_nodes", "fused_normal_eqs"} of the graph
+        # {"nodes", "kernel_nodes", "fused_normal_eqs", "fused_hth", ...}
         self.nodes = None
         self.captured_launches = None  # hand-written kernel launches
         self.captured_collectives = None  # mesh collectives at capture
@@ -215,8 +229,7 @@ class StepGraph:
             self.static_info = torch.empty_like(infos)
         cur.wait_stream(self.stream)
         torch.cuda.synchronize()
-        before = {k: getattr(kernels, k).launches
-                  for k in ("fused_normal_eqs", "fused_hth")}
+        before = {k: getattr(kernels, k).launches for k in KERNELS}
         coll0 = dict(collectives.calls)
         t0 = time.perf_counter()
         # keep the cudaGraph_t after instantiation, to count its nodes
@@ -247,6 +260,8 @@ class StepGraph:
                                      for k, v in coll0.items()}
         self.graph = graph
         self.nodes = _node_counts(graph)
+        for k, v in self.captured_launches.items():
+            captured[k] += v
         return self.ls, infos
 
     def load_state(self, ls) -> None:
@@ -262,11 +277,14 @@ class StepGraph:
                     dst.copy_(src)
 
     def replay(self, rows: torch.Tensor) -> torch.Tensor:
-        """The ticks of `rows` ((steps, R) packed, on the device): one
-        device-to-device copy into the static input, one graph launch.
-        Returns the static (steps, 32) info rows (overwritten by the next
-        replay)."""
-        self.static_in.copy_(rows)
+        """The ticks of `rows` ((steps, R) packed, on the device or in
+        pinned host memory): one copy into the static input (a
+        non-blocking host-to-device copy from pinned memory), one graph
+        launch.  Returns the static (steps, 32) info rows (overwritten by
+        the next replay)."""
+        self.static_in.copy_(rows, non_blocking=True)
         self.graph.replay()
         self.replays += 1
+        for k in KERNELS:
+            replayed[k] += self.nodes[k]
         return self.static_info

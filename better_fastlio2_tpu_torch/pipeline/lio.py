@@ -9,14 +9,16 @@ Port of better_fastlio2_tpu/pipeline/lio.py (laserMapping.cpp:2225-2460):
     map incremental insert                      (map_incremental)
 
 The JAX reference runs the tick as one jitted device program, and a
-window of W ticks as one program (lax.scan).  Here the tick is eager
-PyTorch on the chosen device.  The fused-solve programs branch on the
-device (the update gate and every ESIKF pass are device selects); the
-row path's passes and the hash insert's claim rounds still read the
-device on the host (counted by utils.device.host_syncs).  The dense-moment
-steady program of the fused solve reads nothing, and in window mode on
-CUDA it runs as replays of a captured CUDA graph (pipeline/graphs.py),
-the counterpart of the reference's window program.
+window of W ticks as one program (lax.scan).  Here the tick is PyTorch
+on the chosen device, and every program branches on the device: the
+update gate, the ESIKF passes of both gain paths, the re-association and
+lazy-refresh gates and the hash map's probe and claim rounds are device
+selects or fixed predicated rounds, so a tick reads nothing on the host.
+On CUDA each program runs as replays of a captured CUDA graph
+(pipeline/graphs.py), the counterpart of the reference's jitted program:
+one graph of one tick a scan in per-scan mode, one graph of `unroll`
+ticks for the steady windows in window mode.  On the CPU the ticks run
+eagerly.
 
 Ported: the fused single-association solve (slice 1), the ESIKF row path
 (slice 2), the bench configuration (slice 3: the plane cache with its
@@ -25,14 +27,15 @@ compacted solve), the windowed, pipelined, quantized mode (slice 4) and
 the map rebuild at the kd_step cadence with the map reset after a loop
 correction (slice 5), LOAM plane-feature extraction on the host
 (`preprocess.feature_extract_enable`, io/features.py) with the C++
-wire packer of io/native.py, and the SPMD window step over a
-torch.distributed mesh (`mesh=`, slice 8; parallel/sharded.py).
+wire packer of io/native.py, the SPMD window step over a
+torch.distributed mesh (`mesh=`, slice 8; parallel/sharded.py), and the
+per-scan programs as one CUDA-graph replay a scan (slice 9).
 
 The filter state is replaced between scans in one way, the `ls`
 property's setter: the rebuild, the map reset and the SLAM back end's
-pose feedback and rollback all go through it.  Once the steady step runs
-as a captured CUDA graph, the setter copies the new state into the
-graph's own tensors (the graph reads them by address), so the next
+pose feedback and rollback all go through it.  Once the program that
+runs next is a captured CUDA graph, the setter copies the new state into
+the graph's own tensors (the graph reads them by address), so the next
 replay starts from it.
 """
 
@@ -194,14 +197,14 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
     and IMU masks are sanitised (with every row masked out the map update
     is a bit-exact no-op) and the small state leaves are selected back.
 
-    The fused-solve programs (fused_solve, single_association, no
-    extrinsic estimation) gate the update on the device: it always runs,
-    and `ekf_inited & (n_valid >= 5)` selects its x, P and n_eff or the
-    propagated ones (an update on an empty map may give NaN; the select
-    drops it).  The row programs read the gate on the host.  The
-    returned step carries `sync_free`: True for the dense-moment steady
-    program of the fused solve, the one program that reads nothing on
-    the host (the pipeline captures it in a CUDA graph).
+    Every program gates the update on the device, as the reference's
+    lax.cond (:337): the update always runs, and `ekf_inited & (n_valid
+    >= 5)` selects its x, P and n_eff or the propagated ones (an update
+    on an empty map may give NaN; the select drops it).  The returned
+    step carries `sync_free`: it reads nothing on the host, so the
+    pipeline may capture it in a CUDA graph; true for every program
+    except under a gloo mesh, which stages its collectives through the
+    host.
 
     plane_cache overrides cfg.ikdtree.plane_cache when not None: the
     pipeline builds the 5-NN warmup program with plane_cache=False beside
@@ -233,8 +236,6 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
     dtype = _DTYPES[cfg.dtype]
     packed_key = (2.2 * mp.det_range / mp.surf_leaf_size) < 1000.0
     n_cols = 12 if mp.extrinsic_est_en else 6
-    fused = measurement.fused_form(kd.fused_solve, kd.single_association,
-                                   mp.extrinsic_est_en)
     # downsample centroids at the map's own leaf are one row per map voxel
     pre_grouped = mp.surf_leaf_size == kd.filter_size_map_min
     Q = imu.build_Q(mp.gyr_cov, mp.acc_cov, mp.b_gyr_cov, mp.b_acc_cov, dtype,
@@ -282,16 +283,10 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
             return x_u, P_u, info_u["n_eff"].to(dtype)
 
         zero = torch.zeros((), dtype=dtype, device=device)
-        if fused:  # device gate: run, then select
-            ok = ls.ekf_inited & (n_valid >= 5)
-            x_u, P_u, n_eff = run()
-            return (tree_where(ok, x_u, x_prop), torch.where(ok, P_u, P_prop),
-                    torch.where(ok, n_eff, zero))
-        n_valid_h, inited = to_host(torch.stack(
-            [n_valid, ls.ekf_inited.to(torch.int32)]))
-        if inited and n_valid_h >= 5:
-            return run()
-        return x_prop, P_prop, zero
+        ok = ls.ekf_inited & (n_valid >= 5)  # device gate: run, then select
+        x_u, P_u, n_eff = run()
+        return (tree_where(ok, x_u, x_prop), torch.where(ok, P_u, P_prop),
+                torch.where(ok, n_eff, zero))
 
     def step(ls: LIOState, pts, pt_t, pt_valid, imu_b: imu.ImuBatch,
              last_end_rel, scan_end_t, acc_norm, scan_valid=None):
@@ -397,8 +392,7 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
         return ls, info_vec
 
     # a gloo mesh stages its collectives through the host
-    step.sync_free = fused and mom_dense and (mesh is None
-                                              or mesh.capturable)
+    step.sync_free = mesh is None or mesh.capturable
     return step
 
 
@@ -554,8 +548,24 @@ class LIOPipeline:
 
     def __init__(self, cfg: LIOConfig, device=None, pipelined: bool = False,
                  window: int = 1, quantized: bool = False,
-                 readback_depth: int = 1, unroll: int = 1, mesh=None):
+                 readback_depth: int = 1, unroll: int = 1, mesh=None,
+                 graphed: bool = True):
         """The options of the reference's LIOPipeline (:590-697):
+
+        Per scan (window=1, unquantized) on CUDA, each scan is one packed
+        unquantized row (the window wire with W = 1) shipped in one
+        pinned non-blocking copy, and its tick is a replay of the
+        program's one-tick CUDA graph: the warmup program's graph is
+        captured at its first scan and released at the handoff, the
+        steady program's at its first scan (each program's first scan
+        runs eagerly on the capture stream and the graph is captured from
+        the state it leaves).  On the CPU the step runs eagerly on the
+        scan's tensors.
+
+        graphed=False asks for eager ticks on CUDA (the same ticks, the
+        same results; tools/profile_torch_scan.py uses it so that its
+        record_function spans time the stages).  A capture that fails
+        raises; nothing falls back to eager ticks by itself.
 
         pipelined=True overlaps the info readback with the next scan's
         work: process_scan returns the PREVIOUS scan's result (or, in
@@ -565,11 +575,11 @@ class LIOPipeline:
 
         window=W > 1 batches W scans: they are buffered on the host, shipped
         in one pinned non-blocking host->device copy, run back to back and
-        read back once; results come W scans late.  The dense-moment
-        steady program of the fused solve runs on CUDA as replays of one
-        captured CUDA graph of `steps` ticks (graphs.graph_steps(W,
-        unroll): unroll sets how many ticks one graph holds, and changes
-        no result); every other program runs the W ticks eagerly.
+        read back once; results come W scans late.  The steady program
+        runs on CUDA as replays of one captured CUDA graph of `steps`
+        ticks (graphs.graph_steps(W, unroll): unroll sets how many ticks
+        one graph holds, and changes no result); the warmup windows run
+        their ticks eagerly.
 
         quantized=True ships a window as the compact wire format
         (QuantWindowInputs, packed by _pack_quant); at window=1
@@ -637,20 +647,22 @@ class LIOPipeline:
             raise NotImplementedError(
                 "on CUDA the port runs in float32 (the fused_normal_eqs "
                 "and fused_hth kernels take f32); float64 runs on the CPU")
-        if self._use_window:
-            # the graph holds this view; a bound method would tie it and
-            # the pipeline into a cycle that only the cyclic GC frees
-            self._view = functools.partial(
-                _view_window, n_raw=self._n_pts, n_imu=cfg.shapes.n_imu,
-                quantized=self.quantized)
-            self._tick = _make_tick(cfg, self._step, self.quantized)
-            if self._warmup_scans > 0:
-                self._tick_warm = _make_tick(cfg, self._step_warm,
-                                             self.quantized)
-        # the sync-free steady program replays from a CUDA graph
-        self._graphed = (self._use_window and self.device.type == "cuda"
-                         and self._step.sync_free)
+        # the graph holds this view; a bound method would tie it and the
+        # pipeline into a cycle that only the cyclic GC frees.  Per scan
+        # the ticks read the unquantized row of one scan.
+        self._view = functools.partial(
+            _view_window, n_raw=self._n_pts, n_imu=cfg.shapes.n_imu,
+            quantized=self.quantized)
+        self._tick = _make_tick(cfg, self._step, self.quantized)
+        if self._warmup_scans > 0:
+            self._tick_warm = _make_tick(cfg, self._step_warm,
+                                         self.quantized)
+        # sync-free programs replay from CUDA graphs unless asked not to
+        self._graphed = bool(graphed) and self.device.type == "cuda"
+        # the graph of the program that runs next (window mode: the
+        # steady program's); `_graph_of` names its program
         self.graph: graphs.StepGraph | None = None
+        self._graph_of: str | None = None
         self._init_acc: list[np.ndarray] = []
         self._init_gyr: list[np.ndarray] = []
         self.inited = False
@@ -672,13 +684,14 @@ class LIOPipeline:
 
     @ls.setter
     def ls(self, new: LIOState | None) -> None:
-        """Replace the filter state.  Once a steady-step graph is captured
-        its kernels read the state and the map tables by address: every
-        tensor leaf of `new` is copied into the graph's own (on the current
-        stream, ahead of the next replay) and `ls` stays the graph's.  A
-        state of another structure or shape raises; nothing falls back to
-        eager execution.  Scans already buffered for the open window run
-        from the new state, as in the reference's window dispatch."""
+        """Replace the filter state.  Once the graph of the program that
+        runs next is captured, its kernels read the state and the map
+        tables by address: every tensor leaf of `new` is copied into the
+        graph's own (on the current stream, ahead of the next replay) and
+        `ls` stays the graph's.  A state of another structure or shape
+        raises; nothing falls back to eager execution.  Scans already
+        buffered for the open window run from the new state, as in the
+        reference's window dispatch."""
         if (self.graph is not None and new is not None
                 and new is not self.graph.ls):
             self.graph.load_state(new)
@@ -845,21 +858,61 @@ class LIOPipeline:
             return self._results.pop(0) if self._results else None
 
         if self._scan_count > self._warmup_scans:
+            if self._graph_of == "warmup":
+                # the handoff: the warmup graph is done; release it (and
+                # its pool) before the steady state takes its dense table
+                self.graph, self._graph_of = None, None
             self._ensure_dmom()
-            step = self._step
+            prog, step = "steady", self._step
         else:
-            step = self._step_warm
-        batch = imu.ImuBatch(acc=self._t(A), gyr=self._t(G), t=self._t(Tt),
-                             mask=self._t(Mk, torch.bool))
-        self.ls, info_vec = step(
-            self.ls, self._t(P), self._t(T), self._t(V, torch.bool), batch,
-            self._t(last_end_rel), self._t(scan_end_t), self._t(self.acc_norm))
+            prog, step = "warmup", self._step_warm
+        if self.device.type == "cuda":  # (per scan there is no mesh)
+            info_vec = self._scan_tick(prog, (P, T, V, A, G, Tt, Mk,
+                                              last_end_rel, scan_end_t))
+        else:
+            info_vec = self._scan_eager(step, P, T, V, A, G, Tt, Mk,
+                                        last_end_rel, scan_end_t)
         if not self.pipelined:
             return self._record(np.asarray(to_host(info_vec), np.float32))
         # overlap the result's host copy with the next scan
         prev, self._pending_info = (self._pending_info,
                                     readback_async(info_vec))
         return None if prev is None else self._record(readback_wait(prev))
+
+    def _scan_eager(self, step, P, T, V, A, G, Tt, Mk, last_end_rel,
+                    scan_end_t) -> torch.Tensor:
+        """One scan through `step` on its own tensors (the CPU path)."""
+        batch = imu.ImuBatch(acc=self._t(A), gyr=self._t(G), t=self._t(Tt),
+                             mask=self._t(Mk, torch.bool))
+        self.ls, info_vec = step(
+            self.ls, self._t(P), self._t(T), self._t(V, torch.bool), batch,
+            self._t(last_end_rel), self._t(scan_end_t), self._t(self.acc_norm))
+        return info_vec
+
+    def _scan_tick(self, prog: str, entry: tuple) -> torch.Tensor:
+        """One scan on CUDA as one tick of `prog` ("warmup" or "steady")
+        on its packed unquantized row (_pack_window, W = 1, pinned):
+        a replay of the program's one-tick graph, which takes the row in
+        one non-blocking copy.  The program's first scan is copied to the
+        device, run eagerly on the capture stream, and the graph captured
+        from the state it leaves (StepGraph.warm_up_and_capture); with
+        graphed=False every tick runs eagerly.  Returns the (32,) info."""
+        host = self._pack_window([entry])
+        if self._acc_t is None:  # read by the ticks and the graph
+            self._acc_t = self._t(self.acc_norm)
+        if self.graph is not None and self._graph_of == prog:
+            return self.graph.replay(host)[0]
+        tick = self._tick if prog == "steady" else self._tick_warm
+        row = host.to(self.device, non_blocking=True)
+        if not self._graphed:
+            self.ls, infos = _window_fn(tick, 1)(self.ls, self._view(row),
+                                                 self._acc_t)
+            return infos[0]
+        graph = graphs.StepGraph(_window_fn(tick, 1), self._view, 1,
+                                 self._acc_t)
+        self.ls, infos = graph.warm_up_and_capture(self.ls, row)
+        self.graph, self._graph_of = graph, prog
+        return infos[0]
 
     def _pad_points(self, pts, pt_t):
         n_pad = self.cfg.shapes.n_raw
@@ -929,11 +982,11 @@ class LIOPipeline:
     # -- window mode --------------------------------------------------------
     def _pack_window(self, buf: list[tuple]) -> torch.Tensor:
         """The W buffered scans as ONE (W, R) host tensor (pinned when the
-        pipeline runs on CUDA): quantized, int16 rows [bulk | pad | meta
-        as int16 pairs]; else rows of the pipeline dtype [pts | pt_t |
-        pt_valid | imu acc | gyr | t | mask | last_end_rel | scan_end_t |
-        scan_valid].  Rows past the buffered scans are zeros (scan_valid
-        0), as the reference pads the tail."""
+        pipeline runs on CUDA; per scan W = 1): quantized, int16 rows
+        [bulk | pad | meta as int16 pairs]; else rows of the pipeline
+        dtype [pts | pt_t | pt_valid | imu acc | gyr | t | mask |
+        last_end_rel | scan_end_t | scan_valid].  Rows past the buffered
+        scans are zeros (scan_valid 0), as the reference pads the tail."""
         W, (n, m) = self.window, (self._n_pts, self.cfg.shapes.n_imu)
         if self.quantized:
             L, Lp = 3 * n + n // 2, _bulk_cols(n)
@@ -971,7 +1024,7 @@ class LIOPipeline:
         if self._acc_t is None:  # read by the window ticks and the graph
             self._acc_t = self._t(self.acc_norm)
         win = self._pack_window(buf).to(self.device, non_blocking=True)
-        if steady and self._graphed:
+        if steady and self._graphed and self._step.sync_free:
             infos = self._run_graph(win)
         else:
             wstep = _window_fn(self._tick if steady else self._tick_warm, W)
@@ -999,6 +1052,7 @@ class LIOPipeline:
         if self.graph is None:
             self.graph = graphs.StepGraph(
                 _window_fn(self._tick, U), self._view, U, self._acc_t)
+            self._graph_of = "steady"
             self.ls, infos[:U] = self.graph.warm_up_and_capture(
                 self.ls, win[:U])
             start = U

@@ -5,8 +5,9 @@ JAX reference took with lax.cond / while_loop inside one program) goes
 through `to_host` (or, for a result copied back without waiting,
 `readback_wait`), so a run can report how many synchronisations a scan
 costs.  Both raise while the current CUDA stream is capturing a graph: a
-host read inside a captured step is an error, never a silent count.  The fused-solve programs read nothing (device predication),
-which is what lets pipeline/graphs.py capture the steady step.
+host read inside a captured step is an error, never a silent count.
+The step programs read nothing (device predication and fixed predicated
+rounds), which is what lets pipeline/graphs.py capture them.
 """
 
 from __future__ import annotations

@@ -32,7 +32,21 @@ Phases (any failure exits non-zero and prints no result line):
                call torch reports under set_sync_debug_mode("warn")),
                re-check K1 on three of
                its scans, and gate the trajectory on the room accuracy gate
-               of bench.py (end error <= 0.030 m, ATE <= 0.15 m);
+               of bench.py (end error <= 0.030 m, ATE <= 0.15 m).  Per
+               scan (phases 4-8, 13's per-scan run, 14 and 18) each
+               scan replays its program's one-tick CUDA graph (slice 9),
+               but each program's first, which runs eagerly and captures
+               it: the phase fails unless every other scan replayed and
+               a replayed scan made at most one torch sync (the info
+               readback); the kernel's launches inside the graph are its
+               kernel nodes (found by its handle, equal to its calls at
+               capture) once a replay, and its pass-0 call inside the
+               graph is read back from probe buffers the capture wrote
+               (GraphProbe) on the check scans; the first 24 scans run
+               again with eager ticks (graphed=False) and must equal the
+               replays bit for bit; nvidia-smi's SM clock, power and
+               temperature are sampled every 40 scans; peak memory is
+               given allocated and reserved (the graph pools);
   5. row     — the same sequence and shapes on the ESIKF row path (the
                reference re-association on every converged pass, 6 gain
                columns), K2 launched on every updated scan and re-checked
@@ -98,7 +112,10 @@ Phases (any failure exits non-zero and prints no result line):
                replayed: the pose feedback and map reset reach the graph
                (the map holds the shifted keyframe cloud, the replays go
                on), the trajectory equals an all-eager run bit for bit, and
-               the next window follows the shifted frame;
+               the next window follows the shifted frame; then the same
+               per scan (`slam_handoff_per_scan`: the front end's one-tick
+               steady graph), with its steady ms/scan, torch syncs and
+               peak memory;
  14. dynamic — `run.py mapping --dataset synthetic-outdoor --dynamic`
                through the port's SLAMPipeline on the card (slice 6):
                LIOConfig() defaults (the row path with extrinsic
@@ -117,7 +134,8 @@ Phases (any failure exits non-zero and prints no result line):
                sweeps and host reads, port reads and torch syncs per scan,
                the front end's ms per scan, K1/K2 launches, peak memory;
  15. dynamic_window — the same in the window driver (pipelined, W = 8,
-               quantized, unroll 8; the row path's ticks run eagerly),
+               quantized, unroll 8; the row program's windows replay one
+               captured graph of 8 ticks),
                held to the JAX package's own window-mode figures within
                0.01 and the outdoor ATE gate; the F1 >= 0.60 / precision
                >= 0.85 gates are reported, not held (the reference's
@@ -762,58 +780,230 @@ def bench_config(workload: str):
 
 
 KERNELS = {"fused_normal_eqs": compare_k1, "fused_hth": compare_k2}
+PREFIX_SCANS = 24  # eager ticks held against the graph replays bit for bit
+SMI_EVERY = 40  # per-scan phases: nvidia-smi sampled every so many scans
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's count set to 0, and the graphs' counts of
+    the calls made while capturing and of the launches replays ran."""
+    from better_fastlio2_tpu_torch.ops import kernels
+    from better_fastlio2_tpu_torch.pipeline import graphs
+
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
+        graphs.captured[k] = graphs.replayed[k] = 0
+
+
+def launches_ran() -> dict:
+    """Each kernel's launches that ran since reset_launches: the wrapper's
+    count (it counts where it launches, also into a capturing graph)
+    less its calls while a graph captured, which ran nothing, plus the
+    kernel nodes of every graph replay (found by the kernel's handle)."""
+    from better_fastlio2_tpu_torch.ops import kernels
+    from better_fastlio2_tpu_torch.pipeline import graphs
+
+    return {k: getattr(kernels, k).launches - graphs.captured[k]
+            + graphs.replayed[k] for k in KERNELS}
+
+
+class GraphProbe:
+    """One hand-written kernel (`kernel`, a name of KERNELS) on a path
+    whose ticks run eagerly or as CUDA-graph replays; a context that
+    wraps core.measurement's call of the kernel and StepGraph's capture
+    and replay.
+
+    * `widths`: the kernel's launches that ran, by the width of their
+      input: every eager call, and at each replay its graph's calls at
+      capture (the capture itself runs nothing).
+    * In each capture the first call of each width also clones its
+      inputs and outputs inside the graph, so that every replay rewrites
+      those buffers (probes).  Kept for the plain-version check after the
+      run: the eager calls numbered in `keep_eager` (1-based), the first
+      eager call of width `keep_width`, the probes of the replays
+      numbered in `keep_replays`, and the next call that runs after
+      `snap()` (the next eager call, or the next replay's probes).
+    * After each capture its graph's kernel nodes (found by the kernel's
+      handle) must equal the kernel's calls at capture (`graph_nodes`
+      lists both per capture)."""
+
+    def __init__(self, kernel: str, keep_eager=(), keep_width=None,
+                 keep_replays=()):
+        from better_fastlio2_tpu_torch.core import measurement
+        from better_fastlio2_tpu_torch.pipeline import graphs
+
+        self.kernel, self.real = kernel, getattr(measurement, kernel)
+        self.keep_eager, self.keep_width = set(keep_eager), keep_width
+        self.keep_replays = set(keep_replays)
+        self.widths: dict[int, int] = {}
+        self.eager_calls = self.replays = 0
+        self.kept: list[tuple] = []
+        self.graph_nodes: list[tuple[int, int]] = []
+        self._pending = None
+        self._snap = False
+        self._real_capture = graphs.StepGraph.warm_up_and_capture
+        self._real_replay = graphs.StepGraph.replay
+
+    def _width(self, args) -> int:
+        return (args[0].shape[-1] if self.kernel == "fused_normal_eqs"
+                else args[0].shape[0])
+
+    @staticmethod
+    def _keep(args, kw, out) -> tuple:
+        return ([a.clone() for a in args], dict(kw), [o.clone() for o in out])
+
+    def snap(self) -> None:
+        self._snap = True
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        out = self.real(*args, **kw)
+        width = self._width(args)
+        if self._pending is not None and torch.cuda.is_current_stream_capturing():
+            p = self._pending
+            p["widths"][width] = p["widths"].get(width, 0) + 1
+            if width not in p["probed"]:
+                p["probed"].add(width)
+                p["probes"].append(self._keep(args, kw, out))
+            return out
+        self.eager_calls += 1
+        self.widths[width] = self.widths.get(width, 0) + 1
+        if (self._snap or self.eager_calls in self.keep_eager
+                or (width == self.keep_width and self.widths[width] == 1)):
+            self._snap = False
+            self.kept.append(self._keep(args, kw, out))
+        return out
+
+    def _capture(self, graph, ls, rows):
+        self._pending = {"widths": {}, "probed": set(), "probes": []}
+        try:
+            out = self._real_capture(graph, ls, rows)
+        finally:
+            graph.probe, self._pending = self._pending, None
+        nodes = graph.nodes[self.kernel]
+        calls = graph.captured_launches[self.kernel]
+        if nodes != calls:
+            fail(f"a captured graph holds {nodes} {self.kernel} kernel "
+                 f"nodes for {calls} calls at capture")
+        self.graph_nodes.append((nodes, calls))
+        return out
+
+    def _replay(self, graph, rows):
+        out = self._real_replay(graph, rows)
+        self.replays += 1
+        p = getattr(graph, "probe", None)
+        if p is None:  # a graph captured outside this probe
+            return out
+        for w, c in p["widths"].items():
+            self.widths[w] = self.widths.get(w, 0) + c
+        if (self._snap or self.replays in self.keep_replays) and p["probes"]:
+            self._snap = False
+            for ins, kw, outs in p["probes"]:
+                self.kept.append(self._keep(ins, kw, outs))
+        return out
+
+    def __enter__(self):
+        from better_fastlio2_tpu_torch.core import measurement
+        from better_fastlio2_tpu_torch.pipeline import graphs
+
+        probe = self
+        setattr(measurement, self.kernel, self)
+        graphs.StepGraph.warm_up_and_capture = (
+            lambda g, ls, rows: probe._capture(g, ls, rows))
+        graphs.StepGraph.replay = lambda g, rows: probe._replay(g, rows)
+        return self
+
+    def __exit__(self, *exc):
+        from better_fastlio2_tpu_torch.core import measurement
+        from better_fastlio2_tpu_torch.pipeline import graphs
+
+        setattr(measurement, self.kernel, self.real)
+        graphs.StepGraph.warm_up_and_capture = self._real_capture
+        graphs.StepGraph.replay = self._real_replay
+
+    def checks(self) -> list[dict]:
+        if self.kernel == "fused_hth":
+            return [compare_k2(ins, kw["extrinsic"], *outs)
+                    for ins, kw, outs in self.kept]
+        return [compare_k1(*ins, *outs) for ins, kw, outs in self.kept]
+
+
+SMI_QUERY = "clocks.sm,power.draw,temperature.gpu"
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock (MHz), power draw (W) and temperature (C) at
+    chosen moments: each read is a process started then and collected
+    later, so that no timed host path waits on it (ROADMAP S6: the two
+    modes of device_ms_per_scan)."""
+
+    def __init__(self):
+        self._procs: list[tuple] = []
+
+    def start(self, tag) -> None:
+        self._procs.append((tag, subprocess.Popen(
+            ["nvidia-smi", "-i", first_card(), f"--query-gpu={SMI_QUERY}",
+             "--format=csv,noheader,nounits"], stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)))
+
+    def collect(self) -> list[dict]:
+        """The samples taken, in order; every process is waited for."""
+        out = []
+        for tag, p in self._procs:
+            try:
+                txt, _ = p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                continue
+            vals = txt.strip().split(",")
+            if p.returncode != 0 or len(vals) != 3:
+                continue
+            try:
+                sm, pw, temp = (float(v) for v in vals)
+            except ValueError:
+                continue
+            out.append({"at": tag, "sm_mhz": sm, "power_w": pw,
+                        "temp_c": temp})
+        self._procs = []
+        return out
 
 
 def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                   device=None, check_scans=CHECK_SCANS,
                   check_width: int | None = None) -> dict:
-    """Drive LIOPipeline over `groups`; return the per-scan record, each
-    kernel's launch count over the run (counts set to 0 just before) and
-    `kernel`'s calls by the width of their input, the host syncs per scan
-    (the port's to_host reads, and on CUDA every synchronising call torch
-    reports), and the re-checks of `kernel` on `check_scans` and on its
-    first call of width `check_width` (inputs captured as the path made
-    them, compared after the run)."""
+    """Drive LIOPipeline per scan over `groups` (on CUDA each scan a
+    replay of its program's one-tick graph, captured at the program's
+    first scan); return the per-scan record, each kernel's launches that
+    ran in the run (counts set to 0 just before; replays counted by the
+    graphs' kernel nodes) and `kernel`'s by the width of their input, the
+    graph replays, the host syncs per scan (the port's to_host reads,
+    and on CUDA every synchronising call torch reports), SM clock and
+    power samples, and the re-checks of `kernel` (GraphProbe: pass 0 of
+    the tick on each of `check_scans`, read from the graph's probes or
+    from the eager call, and its first eager call of width
+    `check_width`), compared after the run.  Then, on CUDA, the first
+    PREFIX_SCANS scans again with eager ticks (graphed=False): their
+    results must equal the replays' bit for bit."""
     import torch
 
-    from better_fastlio2_tpu_torch.core import measurement
-    from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
     from better_fastlio2_tpu_torch.utils.device import host_syncs
-
-    fns = {name: getattr(kernels, name) for name in KERNELS}
-    real = fns[kernel]
-    captured = []
-    widths: dict[int, int] = {}
-    capture = [False]  # capture this call's inputs and outputs
-
-    def spy(*args, **kw):  # counts widths, records the path's own calls
-        out = real(*args, **kw)
-        width = args[0].shape[-1] if kernel == "fused_normal_eqs" else (
-            args[0].shape[0])
-        widths[width] = widths.get(width, 0) + 1
-        first_of_width = width == check_width and widths[width] == 1
-        if not (capture[0] or first_of_width):
-            return out
-        if kernel == "fused_hth":
-            captured.append(([a.clone() for a in args], kw["extrinsic"],
-                             *(o.clone() for o in out)))
-        else:
-            captured.append((*(a.clone() for a in args),
-                             *(o.clone() for o in out)))
-        return out
 
     t_run = time.perf_counter()
     pipe = LIOPipeline(cfg, device=device)
     cuda = pipe.device.type == "cuda"
+    smi = SmiSampler() if cuda else None
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    gt, scan_ms, syncs, torch_syncs, outs = [], [], [], [], []
-    launches = {name: [] for name in fns}
-    for f in fns.values():
-        f.launches = 0
+    gt, scan_ms, syncs, torch_syncs, outs, replays = [], [], [], [], [], []
+    launches = {name: [] for name in KERNELS}
+    captures = []  # (scan, program) of each graph captured
+    reset_launches()
     host_syncs.reset()
-    with warnings.catch_warnings(record=True) as caught:
+    probe = GraphProbe(kernel, keep_width=check_width)
+    with warnings.catch_warnings(record=True) as caught, probe:
         warnings.simplefilter("always")
         if cuda:
             torch.cuda.set_sync_debug_mode("warn")
@@ -821,43 +1011,76 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
             for i, g in enumerate(groups):
                 if pipe.inited:
                     gt.append(g["gt_pos"])
-                l0 = {name: f.launches for name, f in fns.items()}
+                if smi is not None and i % SMI_EVERY == 0:
+                    smi.start(i)
+                l0, r0, g0 = launches_ran(), probe.replays, pipe.graph
                 s0, w0 = host_syncs.count, len(caught)
-                capture[0] = i in check_scans
-                setattr(measurement, kernel, spy)
+                if i in check_scans:
+                    probe.snap()
                 t0 = time.perf_counter()
-                try:
-                    out = pipe.process_scan(
-                        g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
-                        g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
-                    n_torch = sum("synchroniz" in str(w.message)
-                                  for w in caught[w0:])
-                    if cuda:
-                        torch.cuda.synchronize()
-                finally:
-                    setattr(measurement, kernel, real)
+                out = pipe.process_scan(
+                    g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
+                    g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
+                n_torch = sum("synchroniz" in str(w.message)
+                              for w in caught[w0:])
+                if cuda:
+                    card_sync()
                 dt = time.perf_counter() - t0
+                if pipe.graph is not None and pipe.graph is not g0:
+                    captures.append((i, pipe._graph_of))
                 if out is not None:
                     scan_ms.append(1e3 * dt)
-                    for name, f in fns.items():
-                        launches[name].append(f.launches - l0[name])
+                    ran = launches_ran()
+                    for name in KERNELS:
+                        launches[name].append(ran[name] - l0[name])
                     syncs.append(host_syncs.count - s0)
                     torch_syncs.append(n_torch)
+                    replays.append(probe.replays - r0)
                     outs.append(out)
         finally:
             if cuda:
                 torch.cuda.set_sync_debug_mode("default")
-    totals = {name: f.launches for name, f in fns.items()}
+    totals = launches_ran()
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    compare = KERNELS[kernel]
-    checks = [compare(*c) for c in captured]
-    return {"traj": np.array(pipe.trajectory), "gt": np.array(gt),
-            "n_scans": len(groups),
-            "seconds": time.perf_counter() - t_run,
+    reserved = torch.cuda.max_memory_reserved() if cuda else None
+    traj = np.array(pipe.trajectory)
+    graph = None
+    if pipe.graph is not None:
+        gr = pipe.graph
+        graph = {"of": pipe._graph_of, "capture_s": gr.capture_s,
+                 "nodes": gr.nodes["nodes"],
+                 "kernel_nodes": gr.nodes["kernel_nodes"],
+                 "fused_normal_eqs_nodes": gr.nodes["fused_normal_eqs"],
+                 "fused_hth_nodes": gr.nodes["fused_hth"],
+                 "by_type": gr.nodes["by_type"]}
+    dmom_built = pipe.ls.map.dmom is not None
+    del pipe
+    checks = probe.checks()
+    prefix = 0
+    if cuda:  # the same scans with eager ticks, bit for bit
+        eager = LIOPipeline(cfg, device=device, graphed=False)
+        for g in groups[:PREFIX_SCANS]:
+            eager.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                               g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
+                               g["scan_end_t"])
+        te = np.array(eager.trajectory)
+        del eager
+        if len(te) < 2 or not np.array_equal(te, traj[:len(te)]):
+            d = (float(np.abs(te - traj[:len(te)]).max())
+                 if len(te) else None)
+            fail(f"the eager ticks of the first {PREFIX_SCANS} scans differ "
+                 f"from the graph replays (max {d})")
+        prefix = len(te)
+    return {"traj": traj, "gt": np.array(gt), "n_scans": len(groups),
+            "seconds": time.perf_counter() - t_run, "cuda": cuda,
             "scan_ms": scan_ms, "launches": launches, "syncs": syncs,
-            "torch_syncs": torch_syncs, "widths": widths,
+            "torch_syncs": torch_syncs, "widths": probe.widths,
+            "replays": replays, "captures": captures, "graph": graph,
+            "graph_nodes": probe.graph_nodes, "prefix_equal": prefix,
+            "smi": smi.collect() if smi is not None else [],
             "outs": outs, "totals": totals, "checks": checks,
-            "peak_bytes": peak, "dmom_built": pipe.ls.map.dmom is not None}
+            "peak_bytes": peak, "peak_reserved_bytes": reserved,
+            "dmom_built": dmom_built}
 
 
 def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
@@ -1032,8 +1255,10 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         "device_ms_per_scan": device["median"],
         "device_ms_per_scan_min": device["min"],
         "device_ms_groups": device["groups"],
+        "device_ms_groups_smi": device["smi"],
         "device_ms_per_scan_probed": probed["median"],
         "device_ms_groups_probed": probed["groups"],
+        "device_ms_groups_probed_smi": probed["smi"],
         "capture_s": capture_s,
         "capture_s_unprobed": pipe.graph.capture_s,
         "graph_nodes_per_step": nodes["nodes"] / steps,
@@ -1104,7 +1329,8 @@ def chain_device_ms(pipe, groups, W) -> dict:
     pipe._run_graph(wins[0])  # warm
     torch.cuda.synchronize()
     group_ms = []
-    for _ in range(CHAIN_GROUPS):
+    smi = SmiSampler()
+    for k in range(CHAIN_GROUPS):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         torch.cuda.set_sync_debug_mode("error")
@@ -1113,12 +1339,14 @@ def chain_device_ms(pipe, groups, W) -> dict:
             for w in wins:
                 pipe._run_graph(w)
             e.record()
+            smi.start(k)  # read while the group runs on the card
         finally:
             torch.cuda.set_sync_debug_mode("default")
         e.synchronize()
         group_ms.append(s.elapsed_time(e) / (CHAIN_WINDOWS * W))
     return {"min": float(np.min(group_ms)),
-            "median": float(np.median(group_ms)), "groups": group_ms}
+            "median": float(np.median(group_ms)), "groups": group_ms,
+            "smi": smi.collect()}
 
 
 def accuracy(traj: np.ndarray, gt: np.ndarray) -> tuple[float, float]:
@@ -1146,7 +1374,8 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
     # every scan but the first (which only builds the map) runs the update
     per_scan = res["launches"][kernel]
     starved = [i for i, n in enumerate(per_scan[1:], 1) if n < 1]
-    if starved or res["totals"][kernel] < 1:
+    # (the wrappers launch nothing on the CPU, where the smoke rehearses)
+    if res["cuda"] and (starved or res["totals"][kernel] < 1):
         fail(f"{name}: {kernel} launched {res['totals'][kernel]} times; "
              f"scans without a launch: {starved[:10]}")
     others = {k: v for k, v in res["totals"].items() if k != kernel}
@@ -1167,16 +1396,42 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
     # scan_ms[i] is the (i + 1)-th scan through a step program
     first = program_warmup or WARMUP_SCANS
     steady = res["scan_ms"][first:]
+    # on CUDA every scan replays its program's graph but each program's
+    # first, which runs eagerly and captures it; a replayed scan makes at
+    # most one torch sync, the info readback
+    replayed = [j for j, r in enumerate(res["replays"]) if r]
+    n_programs = 2 if program_warmup else 1
+    if res["cuda"]:
+        if (len(replayed) != len(res["replays"]) - n_programs
+                or len(res["captures"]) != n_programs
+                or max(res["replays"]) != 1):
+            fail(f"{name}: {len(replayed)} of {len(res['replays'])} scans "
+                 f"replayed a graph, captures {res['captures']}")
+        worst = max(res["torch_syncs"][j] for j in replayed)
+        if worst > 1:
+            fail(f"{name}: a replayed scan made {worst} torch syncs")
+    rep_syncs = [res["torch_syncs"][j] for j in replayed[first:]]
     out = {
         "phase": name, "scans": len(traj), "kernel": kernel,
-        "seconds": res["seconds"],
+        "seconds": res["seconds"], "graphed": res["cuda"],
         "ms_per_scan_median": float(np.median(steady)),
         "ms_per_scan_p90": float(np.percentile(steady, 90)),
         "launches_total": res["totals"][kernel],
         "launches_per_scan": float(np.mean(per_scan[1:])),
+        "graph_replays": len(replayed),
+        "graph_captures": res["captures"],
+        "graph": res["graph"],
+        "graph_kernel_nodes_vs_calls_at_capture": res["graph_nodes"],
+        "eager_prefix_scans_equal": res["prefix_equal"],
         "port_reads_per_scan": float(np.mean(res["syncs"][1:])),
         "torch_syncs_per_scan": float(np.mean(res["torch_syncs"][1:])),
+        "torch_syncs_per_steady_scan": (float(np.mean(rep_syncs))
+                                        if rep_syncs else None),
+        "torch_syncs_per_steady_scan_max": (max(rep_syncs) if rep_syncs
+                                            else None),
+        "smi": res["smi"],
         "max_memory_allocated": res["peak_bytes"],
+        "max_memory_reserved": res["peak_reserved_bytes"],
         "ate_m": ate, "end_err_m": end,
         "gate": {"end_err_m": gate_end, "ate_m": gate_ate},
         "n_ds_mean": float(np.mean(n_ds)), "n_ds_min": int(np.min(n_ds)),
@@ -1309,9 +1564,8 @@ def host_ms(fn, runs: int = SLAM_TIMING_RUNS) -> float:
 def phase_slam(groups, room_window_ms: float | None) -> tuple[dict, object]:
     """bench.py --slam on the port (SLAMPipeline, async back end on the
     host, the window driver of bench_room_window): the steady windows'
-    wall, port reads and torch syncs (sync debug mode "warn": the map
-    resets after a correction read the device in the insert's claim
-    loop), the graph's replays and K1 kernel nodes, the corrections and
+    wall, port reads and torch syncs (sync debug mode "warn"), the
+    graph's replays and K1 kernel nodes, the corrections and
     map resets that reached the captured graph, bench.py's gates (a loop
     closed; corrected keyframe ATE <= max(0.25 m, odometry keyframe ATE))
     and the back end's host times.  Returns (line, pipeline)."""
@@ -1443,11 +1697,16 @@ def phase_slam(groups, room_window_ms: float | None) -> tuple[dict, object]:
     return out, pipe
 
 
-def handoff_run(groups, graphed: bool) -> dict:
-    """SLAMPipeline over the room sequence in the window driver (the graph
-    captured and replayed, or every window eager), a +1 m x correction
+def handoff_run(groups, graphed: bool, per_scan: bool = False) -> dict:
+    """SLAMPipeline over the room sequence in window mode, or per
+    scan (`per_scan`: each scan a replay of its program's one-tick graph,
+    the steady graph captured at scan 17), the graph captured and
+    replayed, or every tick eager (graphed=False); a +1 m x correction
     forced through _apply_correction after SLAM_HANDOFF_SCANS scans (as
-    tests/test_slam_backend.py:175-236 forces it), then one more window."""
+    tests/test_slam_backend.py:175-236 forces it), then SLAM_WINDOW more
+    scans.  Per scan, the steady scans before the correction are timed
+    (host ms a scan, each ending in the card's synchronize) and their
+    torch syncs counted (sync debug "warn")."""
     import torch
 
     from better_fastlio2_tpu_torch.map import voxel_hash
@@ -1457,19 +1716,57 @@ def handoff_run(groups, graphed: bool) -> dict:
     cfg = bench_config("room")
     cfg.loop.enable = False
     cfg.mapping.keyframe_adding_dist_threshold = 1.0
-    pipe = SLAMPipeline(cfg, lio_kwargs=dict(window=SLAM_WINDOW,
-                                             quantized=True,
-                                             unroll=SLAM_WINDOW))
+    kw = {} if per_scan else dict(window=SLAM_WINDOW, quantized=True,
+                                  unroll=SLAM_WINDOW)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = SLAMPipeline(cfg, lio_kwargs=dict(kw, graphed=graphed))
     lio = pipe.lio
-    lio._graphed = graphed
+    scan_ms, scan_syncs, fe_syncs = [], [], []
+    # the front end's own syncs within a scan (SLAMPipeline around it
+    # reads the keyframe data on the host)
+    now = {"caught": None, "front_end": 0}
+    real_fe = lio.process_scan
 
-    def feed(gs):
+    def front_end(*a, **kw):
+        c = now["caught"]
+        n0 = len(c) if c is not None else 0
+        try:
+            return real_fe(*a, **kw)
+        finally:
+            if c is not None:
+                now["front_end"] += sum("synchroniz" in str(w.message)
+                                        for w in c[n0:])
+
+    lio.process_scan = front_end
+
+    def feed(gs, timed=False):
         for g in gs:
-            pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
-                              g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
-                              g["scan_end_t"])
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if timed:
+                    torch.cuda.set_sync_debug_mode("warn")
+                    now.update(caught=caught, front_end=0)
+                t0 = time.perf_counter()
+                try:
+                    pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                                      g["imu_gyr"], g["imu_t"],
+                                      g["scan_beg_abs"], g["scan_end_t"])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    now["caught"] = None
+                card_sync()
+            if timed:
+                scan_ms.append(1e3 * (time.perf_counter() - t0))
+                scan_syncs.append(sum("synchroniz" in str(w.message)
+                                      for w in caught))
+                fe_syncs.append(now["front_end"])
 
-    feed(groups[:SLAM_HANDOFF_SCANS])
+    steady = 1 + PLANE_CACHE_WARMUP + 1  # after the steady graph's capture
+    if per_scan:
+        feed(groups[:steady])
+        feed(groups[steady:SLAM_HANDOFF_SCANS], timed=True)
+    else:
+        feed(groups[:SLAM_HANDOFF_SCANS])
     graph = lio.graph
     if lio._wbuf or (graphed and (graph is None or graph.replays == 0)):
         fail("slam_handoff: the graph was not captured and replayed before "
@@ -1498,51 +1795,76 @@ def handoff_run(groups, graphed: bool) -> dict:
     feed(groups[SLAM_HANDOFF_SCANS:SLAM_HANDOFF_SCANS + SLAM_WINDOW])
     pipe.flush()
     if graphed and (lio.graph is not graph or graph.replays <= n_rep):
-        fail("slam_handoff: the window after the correction did not replay "
+        fail("slam_handoff: the scans after the correction did not replay "
              "the captured graph")
     traj = np.array(lio.trajectory)
     if len(traj) != SLAM_HANDOFF_SCANS - 1 + SLAM_WINDOW:
         fail(f"slam_handoff: {len(traj)} results")
-    return {"traj": traj,
-            "keyframes": n_kf, "moved": moved, "hit": hit,
-            "replays": (n_rep, graph.replays) if graphed else None}
+    out = {"traj": traj,
+           "keyframes": n_kf, "moved": moved, "hit": hit,
+           "replays": (n_rep, graph.replays) if graphed else None,
+           "peak": torch.cuda.max_memory_allocated(),
+           "peak_reserved": torch.cuda.max_memory_reserved()}
+    del lio.process_scan  # the wrapper (no cycle left through it)
+    pipe.close()
+    if scan_ms:
+        out.update(ms=float(np.median(scan_ms)),
+                   syncs=float(np.mean(scan_syncs)),
+                   fe_syncs=float(np.mean(fe_syncs)),
+                   fe_syncs_max=max(fe_syncs))
+    return out
 
 
-def phase_slam_handoff(groups) -> dict:
+def phase_slam_handoff(groups, per_scan: bool = False) -> dict:
     """The state handoff on the card: the +1 m correction of handoff_run
     under the captured graph must reach it (the same graph replays on,
     `ls` stays the graph's, the map holds the shifted keyframe clouds) and
     give the same trajectory, bit for bit, as the same run with every
-    window eager (a lost state would leave the graph's replays 1 m off).
-    The post-correction window follows the shifted frame within the room
-    ATE gate (0.15 m; its end error is reported beside the room's 0.030 m:
-    the reset map is built from the raw keyframe clouds, as in the
-    reference)."""
-    g = handoff_run(groups, graphed=True)
-    e = handoff_run(groups, graphed=False)
+    tick eager (a lost state would leave the graph's replays 1 m off).
+    The scans after the correction follow the shifted frame within the
+    room ATE gate (0.15 m; its end error is reported beside the room's
+    0.030 m: the reset map is built from the raw keyframe clouds, as in
+    the reference).  per_scan: the front end per scan (`slam_handoff_per_
+    scan`, the SLAM front end as users run it without a window), its
+    steady scans' ms, the front end's torch syncs (at most one a scan;
+    SLAMPipeline's own reads of the keyframe data beside them) and
+    peak memory reported."""
+    name = "slam_handoff_per_scan" if per_scan else "slam_handoff"
+    g = handoff_run(groups, graphed=True, per_scan=per_scan)
+    e = handoff_run(groups, graphed=False, per_scan=per_scan)
     if not np.array_equal(g["traj"], e["traj"]):
         d = float(np.abs(g["traj"] - e["traj"]).max()) if (
             g["traj"].shape == e["traj"].shape) else None
-        fail(f"slam_handoff: the graph's trajectory differs from the eager "
+        fail(f"{name}: the graph's trajectory differs from the eager "
              f"run's after the correction (max {d})")
     traj = g["traj"]
     gt = np.array([x["gt_pos"] for x in groups[1:len(traj) + 1]])
     est = traj[:, :3] - traj[0, :3]
     ref = gt - gt[0] + [1.0, 0.0, 0.0]
-    post = slice(len(traj) - SLAM_WINDOW, len(traj))  # the next window
+    post = slice(len(traj) - SLAM_WINDOW, len(traj))  # the next scans
     err = np.linalg.norm(est[post] - ref[post], axis=1)
     ate, end = float(np.sqrt(np.mean(err ** 2))), float(err[-1])
     if ate > 0.15 or end > 0.15:
-        fail(f"slam_handoff: after the correction ATE {ate:.4f} m, end "
+        fail(f"{name}: after the correction ATE {ate:.4f} m, end "
              f"error {end:.4f} m in the shifted frame (<= 0.15)")
-    out = {"phase": "slam_handoff", "scans_before": SLAM_HANDOFF_SCANS - 1,
+    if per_scan and g["fe_syncs_max"] > 1:
+        fail(f"{name}: the front end made {g['fe_syncs_max']} torch syncs "
+             "in a steady scan")
+    out = {"phase": name, "scans_before": SLAM_HANDOFF_SCANS - 1,
            "scans_after": SLAM_WINDOW, "keyframes": g["keyframes"],
-           "graph_replays_before_after": g["replays"],
+           "graphed": True, "graph_replays_before_after": g["replays"],
            "graph_equals_eager": True, "state_moved_m": g["moved"],
            "map_hit_fraction": g["hit"], "ate_shifted_m": ate,
            "end_err_shifted_m": end,
+           "max_memory_allocated": g["peak"],
+           "max_memory_reserved": g["peak_reserved"],
            "gate": {"ate_m": 0.15, "end_err_m": 0.15, "map_hit": 0.9,
                     "room_end_err_m": 0.030}}
+    if per_scan:
+        out.update(ms_per_scan_steady=g["ms"],
+                   ms_per_scan_steady_eager=e["ms"],
+                   torch_syncs_per_steady_scan=g["fe_syncs"],
+                   torch_syncs_per_steady_scan_slam=g["syncs"])
     print(json.dumps(out), flush=True)
     return out
 
@@ -1640,6 +1962,7 @@ def run_slam_phases(room_groups, room_window_ms, handoff: bool = True):
     phase_backend_cuda(pipe)
     if handoff:
         phase_slam_handoff(room_groups)
+        phase_slam_handoff(room_groups, per_scan=True)
     return slam, pipe, groups
 
 
@@ -1762,9 +2085,7 @@ def phase_dynamic(name: str, groups, card: str, lio_kwargs=None,
     pipeline)."""
     import torch
 
-    from better_fastlio2_tpu_torch.core import measurement
     from better_fastlio2_tpu_torch.io.evaluate import pr_rr_f1
-    from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.perception import dynamic as dyn
     from better_fastlio2_tpu_torch.perception import patchwork
     from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
@@ -1783,56 +2104,58 @@ def phase_dynamic(name: str, groups, card: str, lio_kwargs=None,
     pipe._appearance_keep = clock.wrap("appearance_step",
                                        pipe._appearance_keep)
     pipe.lio.process_scan = clock.wrap("front_end", pipe.lio.process_scan)
-    # K2 as the path calls it: its first call, and its first call from each
-    # of DYN_CHECK_SCANS on (in the window driver a window's ticks launch
-    # it at the window's last scan), captured and held against the plain
-    # version after the run
-    real_k2, k2_calls = measurement.fused_hth, []
-    scan, due = [0], list(DYN_CHECK_SCANS)
-
-    def k2_spy(*args, **kw):
-        out = real_k2(*args, **kw)
-        if not k2_calls or (due and scan[0] >= due[0]):
-            if k2_calls:
-                due.pop(0)
-            k2_calls.append(([a.clone() for a in args], kw["extrinsic"],
-                             *(o.clone() for o in out)))
-        return out
-
-    hooks.append((measurement, "fused_hth"))
-    originals.append(real_k2)
-    measurement.fused_hth = k2_spy
+    # K2 as the path calls it: its first call, and from each of
+    # DYN_CHECK_SCANS on its next call that runs (pass 0 of the next
+    # graph replay, read from the graph's probes: in window mode a
+    # window's ticks run at the window's last scan), held against the
+    # plain version after the run
+    due = list(DYN_CHECK_SCANS)
+    probe = GraphProbe("fused_hth", keep_eager=(1,))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        getattr(kernels, k).launches = 0
+    reset_launches()
     dyn.cluster_stats.reset()
     host_syncs.reset()
-    pred, gt = [], []
+    pred, gt, step_syncs = [], [], []
+    t_steady = n_steady = None
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, probe:
             warnings.simplefilter("always")
             if cuda:
                 torch.cuda.set_sync_debug_mode("warn")
             try:
-                for scan[0], g in enumerate(groups):
+                for i, g in enumerate(groups):
+                    if due and i >= due[0]:
+                        due.pop(0)
+                        probe.snap()
+                    if i == WARMUP_SCANS:  # the front end's graph replays
+                        card_sync()
+                        t_steady, n_steady = time.perf_counter(), 0
+                    w0 = len(caught)
                     pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
                                       g["imu_gyr"], g["imu_t"],
                                       g["scan_beg_abs"], g["scan_end_t"])
+                    step_syncs.append(sum("synchroniz" in str(w.message)
+                                          for w in caught[w0:]))
+                    if n_steady is not None:
+                        n_steady += 1
                     pred.append(pipe.last_dynamic_mask)
                     gt.append(g["gt_dynamic"])
+                card_sync()
+                steady_ms = (1e3 * (time.perf_counter() - t_steady)
+                             / n_steady if n_steady else None)
             finally:
                 if cuda:
                     torch.cuda.set_sync_debug_mode("default")
-            n_torch = sum("synchroniz" in str(w.message) for w in caught)
-        reads = host_syncs.count
-        pipe.flush()
+            n_torch = sum(step_syncs)
+            reads = host_syncs.count
+            pipe.flush()
     finally:
         for (m, n), f in zip(hooks, originals):
             setattr(m, n, f)
     card_sync()
     n = len(groups)
-    launches = {k: getattr(kernels, k).launches for k in KERNELS}
+    launches = launches_ran()
     traj = np.array(pipe.lio.trajectory)
     if len(traj) != n - 1 or not np.all(np.isfinite(traj)):
         fail(f"{name}: trajectory has {len(traj)} rows or non-finite values")
@@ -1840,7 +2163,16 @@ def phase_dynamic(name: str, groups, card: str, lio_kwargs=None,
                  or launches["fused_hth"] < n - 1):
         fail(f"{name}: the row path's launches are {launches} over {n} "
              "scans (K2 on every updated scan, K1 never)")
-    k2_checks = [compare_k2(*c) for c in k2_calls]
+    lio = pipe.lio
+    graph = lio.graph
+    if cuda and (graph is None or graph.replays < 1):
+        fail(f"{name}: the front end never replayed a captured graph")
+    replays = graph.replays if graph is not None else 0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    reserved = torch.cuda.max_memory_reserved() if cuda else None
+    prefix = (dynamic_prefix(name, groups, traj, lio_kwargs, device)
+              if cuda else 0)
+    k2_checks = probe.checks()
     n_ds = pipe.cfg.shapes.n_ds
     if len(k2_checks) != 1 + len(DYN_CHECK_SCANS) or any(
             c["n"] != n_ds for c in k2_checks):
@@ -1894,16 +2226,45 @@ def phase_dynamic(name: str, groups, card: str, lio_kwargs=None,
         "cluster_reads_per_scan": dyn.cluster_stats.reads / n,
         "port_reads_per_scan": reads / n,
         "torch_syncs_per_scan": n_torch / n,
+        "torch_syncs_per_steady_scan": float(np.mean(
+            step_syncs[WARMUP_SCANS:])),
         "sync_debug_mode": "warn",
+        "graphed": cuda, "graph_replays": replays,
+        "graph_kernel_nodes_vs_calls_at_capture": probe.graph_nodes,
+        "ms_per_scan_steady": steady_ms,
+        "eager_prefix_scans_equal": prefix,
         "k1_launches": launches["fused_normal_eqs"],
         "k2_launches": launches["fused_hth"],
         "k2_checks": k2_checks,
         "removed_points": int(sum(int(m.sum()) for m in pred)),
-        "max_memory_allocated": (torch.cuda.max_memory_allocated() if cuda
-                                 else None),
+        "max_memory_allocated": peak,
+        "max_memory_reserved": reserved,
     }
     print(json.dumps(out), flush=True)
     return out, pipe
+
+
+def dynamic_prefix(name: str, groups, traj, lio_kwargs, device) -> int:
+    """The first PREFIX_SCANS scans of `name` again through SLAMPipeline
+    with eager ticks (graphed=False): the front end's results must equal
+    the graph replays' bit for bit.  Returns the results compared."""
+    from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
+
+    e = SLAMPipeline(dynamic_config(),
+                     lio_kwargs={**(lio_kwargs or {}), "graphed": False},
+                     device=device)
+    try:
+        for g in groups[:PREFIX_SCANS]:
+            e.process_scan(g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"],
+                           g["imu_t"], g["scan_beg_abs"], g["scan_end_t"])
+        e.flush()
+    finally:
+        e.close()
+    te = np.array(e.lio.trajectory)
+    if len(te) < 2 or not np.array_equal(te, traj[:len(te)]):
+        fail(f"{name}: the eager ticks of the first {PREFIX_SCANS} scans "
+             "differ from the graph replays")
+    return len(te)
 
 
 def _scan_pose(traj, i):
@@ -2455,11 +2816,13 @@ CLI_BASE_NS = 1_600_000_000 * 10 ** 9  # epoch of the written stamps, ns
 CLI_SLICES = 32  # the time slices SyntheticWorld.scan samples a sweep in
 CLI_SAME_ROWS = 40  # pos_log rows the in-process run must reproduce
 CLI_RELO_SCANS = 12
-# the mapping run's K1 calls held to the plain version (~10 a scan: the
-# first, on a map of one scan, then call 100 in a warmup scan and 1200 in
-# a steady one) and online_relo's K2 calls (~4 a scan)
-CLI_K1_CHECK_CALLS = (1, 100, 1200)
-CLI_K2_CHECK_CALLS = (1, 40)
+# the mapping run's K1 calls held to the plain version: its first (on a
+# map of one scan, eager), then pass 0 of graph replay 9 (a warmup scan)
+# and of replay 120 (a steady one); online_relo's K2: its first (the
+# first scan's update on an empty map, which the update gate selects
+# away: an all-false mask, exactly 0) and pass 0 of replay 4
+CLI_K1_CHECK = {"keep_eager": (1,), "keep_replays": (9, 120)}
+CLI_K2_CHECK = {"keep_eager": (1,), "keep_replays": (4,)}
 
 
 def kitti_stamp(t_ns: int) -> str:
@@ -2585,45 +2948,6 @@ def _cli(argv: list[str]) -> tuple[dict, float]:
     return json.loads(lines[-1]), seconds
 
 
-class KernelSpy:
-    """Wrap core.measurement's call of one kernel wrapper: count its calls
-    and keep the inputs and outputs of the calls numbered in `keep`
-    (1-based) for a comparison with the plain version after the run."""
-
-    def __init__(self, name: str, keep):
-        from better_fastlio2_tpu_torch.core import measurement
-
-        self.name, self.keep = name, set(keep)
-        self.real = getattr(measurement, name)
-        self.calls, self.captured = 0, []
-
-    def __call__(self, *args, **kw):
-        out = self.real(*args, **kw)
-        self.calls += 1
-        if self.calls in self.keep:
-            ins = [a.clone() for a in args]
-            outs = [o.clone() for o in out]
-            self.captured.append((ins, kw, outs))
-        return out
-
-    def __enter__(self):
-        from better_fastlio2_tpu_torch.core import measurement
-
-        setattr(measurement, self.name, self)
-        return self
-
-    def __exit__(self, *exc):
-        from better_fastlio2_tpu_torch.core import measurement
-
-        setattr(measurement, self.name, self.real)
-
-    def checks(self) -> list[dict]:
-        if self.name == "fused_hth":
-            return [compare_k2(ins, kw["extrinsic"], *outs)
-                    for ins, kw, outs in self.captured]
-        return [compare_k1(*ins, *outs) for ins, kw, outs in self.captured]
-
-
 def _read_rows(path: str) -> list[str]:
     with open(path) as f:
         return f.readlines()
@@ -2638,19 +2962,23 @@ def phase_cli(groups, card: str, native_rows: dict | None,
        in its scan-end frame, write_kitti_dir) and bench_config("room") as
        a YAML file; their seconds, and the loader's to read it all back;
     2. `mapping --dataset kitti:<dir> --config <yaml> --output S
-       --state-log`: K1 on every updated scan, its calls
-       CLI_K1_CHECK_CALLS held against the plain version (the later ones
-       on live lanes), K2 never; the
+       --state-log`, each scan a replay of its program's one-tick CUDA
+       graph but each program's first: K1 on every updated scan, its
+       calls CLI_K1_CHECK held against the plain version (the replays'
+       from the graph's probes, on live lanes), K2 never; the torch syncs
+       a scan (sync debug "warn") and the peak memory; the
        room gate on pos_log.txt against ground truth (each row describes
        the scan before the one whose stamp it carries: the SLAM front end
        is pipelined, and the reference's CLI writes it so too); the
        session read back; fast_lio_time_log.csv one row a scan, the
        median steady ms/scan from its totals;
     3. the first CLI_SAME_ROWS rows again from SLAMPipeline.process_scan
-       on the loader's groups in this process, equal string for string;
+       on the loader's groups in this process with eager ticks
+       (graphed=False), equal string for string;
     4. `online_relo --prior S --max-scans 12` with LIOConfig() defaults
        (the row path with extrinsic estimation): K2 on every pass, its
-       calls CLI_K2_CHECK_CALLS held against the plain version; K1 never;
+       calls CLI_K2_CHECK held against the plain version (graph replays
+       as in 2); K1 never;
        initialized, at least
        one relo frame, 12 finite poses written;
     5. `multi_session --central S --query S`: at least one Scan Context
@@ -2671,7 +2999,6 @@ def phase_cli(groups, card: str, native_rows: dict | None,
     from better_fastlio2_tpu_torch.io.pcd import read_pcd
     from better_fastlio2_tpu_torch.io.session import SessionReader
     from better_fastlio2_tpu_torch.io.synthetic import Trajectory
-    from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline.slam import SLAMPipeline
     from better_fastlio2_tpu_torch.run import format_row
     from better_fastlio2_tpu_torch.utils.timing import CSV_HEADER
@@ -2697,25 +3024,40 @@ def phase_cli(groups, card: str, native_rows: dict | None,
             fail(f"cli: the loader read {len(loaded)} of {len(groups)} scans")
 
         # 2. mapping
-        for k in KERNELS:
-            getattr(kernels, k).launches = 0
-        with KernelSpy("fused_normal_eqs", CLI_K1_CHECK_CALLS) as k1:
-            summary, map_s = _cli([
-                "mapping", "--dataset", f"kitti:{data}", "--config",
-                cfg_path, "--output", sess, "--state-log", "--device",
-                device])
-        launches = {k: getattr(kernels, k).launches for k in KERNELS}
+        reset_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught, GraphProbe(
+                "fused_normal_eqs", **CLI_K1_CHECK) as k1:
+            warnings.simplefilter("always")
+            if cuda:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                summary, map_s = _cli([
+                    "mapping", "--dataset", f"kitti:{data}", "--config",
+                    cfg_path, "--output", sess, "--state-log", "--device",
+                    device])
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("default")
+        map_syncs = sum("synchroniz" in str(w.message) for w in caught)
+        map_peak = torch.cuda.max_memory_allocated() if cuda else None
+        map_reserved = torch.cuda.max_memory_reserved() if cuda else None
+        launches = launches_ran()
         k1_checks = k1.checks()
+        n_k1_checks = 1 + (len(CLI_K1_CHECK["keep_replays"]) if cuda else 0)
         updated = len(groups) - 1  # every scan but the IMU init's
         if summary["scans"] != len(groups):
             fail(f"cli: mapping ran {summary['scans']} of {len(groups)} "
                  "scans")
+        # every scan but each program's first replays its graph
         if cuda and (launches["fused_normal_eqs"] < updated
-                     or launches["fused_hth"]
-                     or len(k1_checks) != len(CLI_K1_CHECK_CALLS)
+                     or launches["fused_hth"] or k1.replays != updated - 2
+                     or len(k1_checks) != n_k1_checks
                      or not all(c["max_abs_G"] > 0 for c in k1_checks[1:])):
             fail(f"cli: mapping launched {launches} in {updated} updated "
-                 f"scans ({len(k1_checks)} K1 calls checked)")
+                 f"scans, {k1.replays} graph replays ({len(k1_checks)} K1 "
+                 "calls checked)")
         rows = _read_rows(os.path.join(sess, "pos_log.txt"))
         if len(rows) != updated - 1:
             fail(f"cli: pos_log.txt has {len(rows)} rows for {updated} "
@@ -2742,10 +3084,12 @@ def phase_cli(groups, card: str, native_rows: dict | None,
         total_ms = [1e3 * float(r.split(",")[1]) for r in log[1:]]
         steady_ms = total_ms[PLANE_CACHE_WARMUP + 1:]
 
-        # 3. the same scans in this process, without the CLI
+        # 3. the same scans in this process, without the CLI and with
+        # eager ticks: the CLI's graph replays equal them bit for bit
         cfg = load_yaml(cfg_path)
         cfg.loop.enable = False  # as `mapping` without --loop
-        pipe = SLAMPipeline(cfg, device=device)
+        pipe = SLAMPipeline(cfg, device=device,
+                            lio_kwargs={"graphed": False})
         same = []
         try:
             for g in loaded[:CLI_SAME_ROWS + 2]:
@@ -2766,15 +3110,15 @@ def phase_cli(groups, card: str, native_rows: dict | None,
 
         # 4. online_relo with LIOConfig() defaults: the row path
         relo_dir = os.path.join(tmp, "relo")
-        for k in KERNELS:
-            getattr(kernels, k).launches = 0
-        with KernelSpy("fused_hth", CLI_K2_CHECK_CALLS) as k2:
+        reset_launches()
+        with GraphProbe("fused_hth", **CLI_K2_CHECK) as k2:
             relo, relo_s = _cli([
                 "online_relo", "--prior", sess, "--dataset", f"kitti:{data}",
                 "--max-scans", str(CLI_RELO_SCANS), "--output", relo_dir,
                 "--device", device])
-        relo_launches = {k: getattr(kernels, k).launches for k in KERNELS}
+        relo_launches = launches_ran()
         k2_checks = k2.checks()
+        n_k2_checks = 1 + (len(CLI_K2_CHECK["keep_replays"]) if cuda else 0)
         relo_rows = np.array([[float(v) for v in r.split()] for r in
                               _read_rows(os.path.join(relo_dir,
                                                       "relo_pose.txt"))])
@@ -2784,11 +3128,14 @@ def phase_cli(groups, card: str, native_rows: dict | None,
                 or not np.all(np.isfinite(relo_rows))):
             fail(f"cli: online_relo {relo}, relo_pose.txt "
                  f"{relo_rows.shape}")
-        if cuda and (relo_launches["fused_hth"] < CLI_K2_CHECK_CALLS[-1]
+        if cuda and (relo_launches["fused_hth"] < CLI_RELO_SCANS
                      or relo_launches["fused_normal_eqs"]
-                     or len(k2_checks) != len(CLI_K2_CHECK_CALLS)
-                     or not all(c["n_valid"] > 0 for c in k2_checks)):
-            fail(f"cli: online_relo launched {relo_launches}")
+                     or k2.replays < CLI_RELO_SCANS - 1
+                     or len(k2_checks) != n_k2_checks
+                     or not all(c["n_valid"] > 0 for c in k2_checks[1:])):
+            fail(f"cli: online_relo launched {relo_launches}, "
+                 f"{k2.replays} graph replays, {len(k2_checks)} K2 calls "
+                 "checked")
 
         # 5. multi_session of S with itself
         ms_dir = os.path.join(tmp, "merged")
@@ -2825,12 +3172,19 @@ def phase_cli(groups, card: str, native_rows: dict | None,
         "ate_m": ate, "end_err_m": end,
         "gate": {"end_err_m": 0.030, "ate_m": 0.15},
         "pos_log_rows": len(rows), "rows_equal_in_process": len(same),
+        "rows_equal_in_process_eager": len(same),
         "keyframes": reader.num_keyframes,
+        "graphed": cuda, "graph_replays": k1.replays,
+        "torch_syncs_per_scan_mapping": map_syncs / len(groups),
+        "max_memory_allocated_mapping": map_peak,
+        "max_memory_reserved_mapping": map_reserved,
+        "graph_kernel_nodes_vs_calls_at_capture": k1.graph_nodes,
         "k1_launches": launches["fused_normal_eqs"],
         "k1_launches_per_updated_scan": launches["fused_normal_eqs"]
         / updated,
         "k1_checks": k1_checks,
         "online_relo": {**relo, "seconds": relo_s,
+                        "graph_replays": k2.replays,
                         "k2_launches": relo_launches["fused_hth"],
                         "k2_checks": k2_checks},
         "multi_session": {**ms, "seconds": ms_s,

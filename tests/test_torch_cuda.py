@@ -55,6 +55,15 @@ The SPMD window step (slice 8) under a one-rank NCCL mesh: the graph
 captured with its collectives replays bit-identically to the eager ticks
 and to the window pipeline without a mesh, over two runs, and a state
 replaced between windows reaches it (StepGraph.load_state).
+
+Per scan (slice 9): each program's one-tick graph replays bit-identically
+to the same ticks run eagerly (graphed=False), across the bench
+configuration's warmup->steady handoff, for the fused, row (6 and 12
+columns) and bench programs; a pipelined steady scan makes no sync under
+sync debug mode "error"; a state replaced between scans reaches the
+warmup graph and, after the handoff, the steady graph; a failed capture
+raises.  Kernel launches are counted as they ran: the wrappers' counts
+less the calls made while capturing, plus the graphs' replayed nodes.
 """
 
 import numpy as np
@@ -72,7 +81,16 @@ from better_fastlio2_tpu_torch.io.synthetic import (SyntheticWorld,
 from better_fastlio2_tpu_torch.map import voxel_hash
 from better_fastlio2_tpu_torch.ops import kernels as tk
 from better_fastlio2_tpu_torch.ops.downsample import voxel_downsample
+from better_fastlio2_tpu_torch.pipeline import graphs
 from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
+
+
+def _ran(name: str) -> int:
+    """Launches of kernel `name` that ran so far: its wrapper's count less
+    the calls made while a graph captured (they launched nothing then),
+    plus the launches the graphs' replays ran."""
+    return (getattr(tk, name).launches - graphs.captured[name]
+            + graphs.replayed[name])
 
 
 @pytest.fixture
@@ -201,7 +219,7 @@ def test_cuda_pipeline_matches_cpu(cuda):
     pc = LIOPipeline(_cfg(), device="cpu")
     pg = LIOPipeline(_cfg())
     assert pg.device.type == "cuda"
-    before = tk.fused_normal_eqs.launches
+    before = _ran("fused_normal_eqs")
     n, err = 0, []
     for g in groups:
         args = _args(g)
@@ -215,7 +233,7 @@ def test_cuda_pipeline_matches_cpu(cuda):
         err.append(np.linalg.norm(og["pos"] - (g["gt_pos"] - [0, 0, 1.5])))
     assert n >= 10
     assert np.sqrt(np.mean(np.square(err))) < 0.10
-    assert tk.fused_normal_eqs.launches - before >= n - 1
+    assert _ran("fused_normal_eqs") - before >= n - 1
 
 
 @pytest.mark.cuda
@@ -283,14 +301,14 @@ def _row_cfg():
 def test_cuda_row_pipeline_is_deterministic(cuda):
     groups = _groups()
     runs = []
-    k2 = tk.fused_hth.launches
+    k2 = _ran("fused_hth")
     for _ in range(2):
         p = LIOPipeline(_row_cfg())
         for g in groups:
             p.process_scan(*_args(g))
         runs.append(np.array(p.trajectory))
     assert len(runs[0]) >= 10
-    assert tk.fused_hth.launches - k2 >= 2 * (len(runs[0]) - 1)
+    assert _ran("fused_hth") - k2 >= 2 * (len(runs[0]) - 1)
     np.testing.assert_array_equal(runs[0], runs[1])
 
 
@@ -474,7 +492,7 @@ def test_cuda_bench_pipeline_matches_cpu(cuda):
     groups = _bench_groups()
     pc = LIOPipeline(_bench_cfg(), device="cpu")
     pg = LIOPipeline(_bench_cfg())
-    before = tk.fused_normal_eqs.launches
+    before = _ran("fused_normal_eqs")
     n, err = 0, []
     for g in groups:
         args = _args(g)
@@ -488,7 +506,7 @@ def test_cuda_bench_pipeline_matches_cpu(cuda):
         err.append(np.linalg.norm(og["pos"] - (g["gt_pos"] - [0, 0, 1.5])))
     assert n >= 14 and pg.ls.map.dmom is not None
     assert np.sqrt(np.mean(np.square(err))) < 0.10
-    assert tk.fused_normal_eqs.launches - before >= n - 1
+    assert _ran("fused_normal_eqs") - before >= n - 1
 
 
 @pytest.mark.cuda
@@ -1137,3 +1155,142 @@ def test_cuda_nccl_mesh_graph_takes_replaced_state(cuda, nccl_mesh):
                                   np.array(pe.trajectory))
     np.testing.assert_array_equal(pg_.ls.map.dmom.cpu().numpy(),
                                   pe.ls.map.dmom.cpu().numpy())
+
+
+# ---- slice 9: per-scan mode replays a one-tick graph a scan -------------
+
+def _per_scan_cfg(program):
+    """The per-scan programs at small shapes: `main` the fused solve,
+    `row` / `row_ext` the row path with the reference re-association
+    (6 / 12 columns), `bench` the bench configuration (a 6-scan 5-NN
+    warmup program, then the steady program)."""
+    if program == "bench":
+        return _bench_cfg()
+    cfg = _cfg()
+    if program != "main":
+        cfg.ikdtree.single_association = False
+        cfg.mapping.extrinsic_est_en = program == "row_ext"
+    return cfg
+
+
+def _scan_run(pipe, groups):
+    for g in groups:
+        pipe.process_scan(*_args(g))
+    return np.array(pipe.trajectory)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["main", "row", "row_ext", "bench"])
+def test_cuda_per_scan_graph_matches_eager_ticks(cuda, program):
+    """Per scan, each program's one-tick graph replays bit-identically to
+    the same ticks run eagerly (graphed=False), across the bench
+    configuration's warmup->steady handoff; the warmup graph is released
+    at the handoff and the steady graph captured at the first steady
+    scan; every scan after a program's first is one replay; the graph's
+    K1 / K2 kernel nodes equal the kernels' calls at capture."""
+    groups = _bench_groups() if program == "bench" else _groups()
+    pg, pe = (LIOPipeline(_per_scan_cfg(program), graphed=g)
+              for g in (True, False))
+    r0 = graphs.replayed.copy()
+    tg, te = _scan_run(pg, groups), _scan_run(pe, groups)
+    assert pe.graph is None and pg.graph is not None
+    assert pg._graph_of == "steady" and pg.ls is pg.graph.ls
+    np.testing.assert_array_equal(tg, te)
+    for dst, src in graphs._leaf_pairs(pg.ls, pe.ls):
+        assert torch.equal(dst, src)
+    warm = 6 if program == "bench" else 0
+    n = len(groups) - 1  # scans through a step program
+    assert pg.graph.replays == n - warm - 1
+    kernel = "fused_hth" if program.startswith("row") else "fused_normal_eqs"
+    nodes = pg.graph.nodes[kernel]
+    assert nodes == pg.graph.captured_launches[kernel] > 0
+    assert graphs.replayed[kernel] - r0[kernel] >= nodes * pg.graph.replays
+    other = "fused_normal_eqs" if kernel == "fused_hth" else "fused_hth"
+    assert pg.graph.nodes[other] == 0
+    err = np.linalg.norm(tg[:, :3] - (np.array(
+        [g["gt_pos"] for g in groups[1:]]) - [0, 0, 1.5]), axis=1)
+    assert np.sqrt(np.mean(err ** 2)) < 0.10
+
+
+@pytest.mark.cuda
+def test_cuda_per_scan_steady_scan_makes_no_sync(cuda):
+    """Pipelined, a steady scan per scan (the pinned row, its
+    non-blocking copy, the replay, the readback started, the previous
+    one consumed by an event wait) runs under sync debug mode "error",
+    which raises on any synchronising call."""
+    groups = _bench_groups()
+    p = LIOPipeline(_bench_cfg(), pipelined=True)
+    for g in groups[:10]:  # init, 6 warmup scans, the steady capture
+        p.process_scan(*_args(g))
+    assert p._graph_of == "steady"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in groups[10:13]:
+            p.process_scan(*_args(g))  # the pending readback: an event wait
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    p.flush()
+    assert len(p.trajectory) == 12
+
+
+@pytest.mark.cuda
+def test_cuda_per_scan_graph_takes_replaced_state(cuda):
+    """A state replaced between scans reaches the per-scan graph of the
+    program that runs next: a pose feedback under the warmup graph, and
+    after the handoff a +1 m pose feedback with a map reset (the SLAM back
+    end's correction) under the steady graph.  The replays after each
+    equal the eager ticks from the same state, bit for bit; the steady
+    graph is neither captured again nor bypassed, and `ls` stays its
+    own tensors.  A state of another shape raises."""
+    groups = _bench_groups(2.4)
+    pg_, pe = (LIOPipeline(_bench_cfg(), graphed=g) for g in (True, False))
+    off = torch.tensor([0.05, 0.0, 0.0], device=cuda)
+    for k, g in enumerate(groups[:12]):
+        if k == 4:  # under the warmup graph
+            warm = pg_.graph
+            assert pg_._graph_of == "warmup" and warm.replays > 0
+            for p in (pg_, pe):
+                p.ls = p.ls._replace(x=p.ls.x._replace(pos=p.ls.x.pos + off))
+            assert pg_.ls is warm.ls
+        pg_.process_scan(*_args(g))
+        pe.process_scan(*_args(g))
+    graph = pg_.graph
+    assert pg_._graph_of == "steady" and graph.replays > 0
+    pts = pg_.ls.map.points.reshape(-1, 3)
+    pts = pts[pts[:, 0] < 1e8][:3000].cpu().numpy() + [1.0, 0.0, 0.0]
+    for p in (pg_, pe):
+        _replaced(p, pts, torch.tensor([1.0, 0.0, 0.0], device=cuda))
+    assert pg_.ls is graph.ls
+    n0 = graph.replays
+    for g in groups[12:]:
+        pg_.process_scan(*_args(g))
+        pe.process_scan(*_args(g))
+    assert pg_.graph is graph and graph.replays == n0 + len(groups) - 12
+    np.testing.assert_array_equal(np.array(pg_.trajectory),
+                                  np.array(pe.trajectory))
+    np.testing.assert_array_equal(pg_.ls.map.dmom.cpu().numpy(),
+                                  pe.ls.map.dmom.cpu().numpy())
+    with pytest.raises(ValueError, match="state replacement"):
+        pg_.ls = pg_.ls._replace(P=pg_.ls.P[:-1])
+
+
+@pytest.mark.cuda
+def test_cuda_per_scan_failed_capture_raises(cuda):
+    """A capture that fails raises out of process_scan (here a host read
+    slipped into the tick); nothing falls back to eager ticks."""
+    from better_fastlio2_tpu_torch.utils import device as tdev
+
+    groups = _groups()
+    p = LIOPipeline(_cfg())
+    tick = p._tick
+
+    def reads_the_host(ls, xs, acc_norm):
+        tdev.to_host(acc_norm)
+        return tick(ls, xs, acc_norm)
+
+    p._tick = reads_the_host
+    p.process_scan(*_args(groups[0]))  # the IMU init
+    with pytest.raises(tdev.HostReadInCapture):
+        p.process_scan(*_args(groups[1]))
+    assert p.graph is None

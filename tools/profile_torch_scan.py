@@ -17,6 +17,14 @@ re-association (K2), `row_ext` the row path with extrinsic estimation,
 warmup program apart: scans 3-10 under the profiler and the syncs of
 scans 11-15, all before the steady program starts at scan 17.
 
+Per scan the pipeline runs twice.  First with eager ticks
+(LIOPipeline(graphed=False)), so that the record_function spans time
+each stage: the top-level fields.  Then as users run it, each scan a
+replay of its program's one-tick CUDA graph: the same fields under
+`replay` (wall, device time, busy share, launches and syncs per scan;
+the replayed ticks carry no lio.* spans), with `graph`, the steady
+graph's nodes, kernel nodes, K1/K2 nodes and capture time.
+
 --window W (> 1, bench configurations only, with --scans given) drives
 the pipeline as bench.py does (slice 4: pipelined, window W, quantized, unroll min(W,
 8)): the last warmup window (eager, with the per-stage breakdown) under
@@ -278,22 +286,46 @@ def main() -> None:
     groups = make_bench_sequence(
         "outdoor" if args.config == "bench_outdoor" else "room", n_groups)
     cfg = CONFIGS[args.config]()
-    pipe = (LIOPipeline(cfg) if W == 1 else
-            LIOPipeline(cfg, pipelined=True, window=W, quantized=True,
-                        unroll=min(W, 8)))
-
-    def feed(g):
-        return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
-                                 g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
-                                 g["scan_end_t"])
-
     if W > 1:
+        pipe = LIOPipeline(cfg, pipelined=True, window=W, quantized=True,
+                           unroll=min(W, 8))
+
+        def feed(g):
+            return pipe.process_scan(
+                g["pts"], g["pt_t"], g["imu_acc"], g["imu_gyr"], g["imu_t"],
+                g["scan_beg_abs"], g["scan_end_t"])
+
         out = {"config": args.config}
         out.update(profile_windowed(pipe, feed, groups, scans))
         out["dmom_built"] = pipe.ls.map.dmom is not None
         print(card, flush=True)
         print(json.dumps(out), flush=True)
         return
+    out = {"config": args.config}
+    out.update(per_scan(LIOPipeline(cfg, graphed=False), groups,
+                        args.warmup, scans, bench))
+    pipe = LIOPipeline(CONFIGS[args.config]())
+    out["replay"] = per_scan(pipe, groups, args.warmup, scans, bench)
+    g = pipe.graph
+    out["replay"]["graph"] = {"of": pipe._graph_of, "steps": g.steps,
+                              "capture_s": g.capture_s, **g.nodes,
+                              "captured_launches": g.captured_launches}
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+
+
+def per_scan(pipe, groups, warmup: int, scans: int, bench: bool) -> dict:
+    """The per-scan breakdown of the module docstring on `pipe`: the
+    bench configurations' warmup program apart (`warmup`), then --scans
+    steady scans from scan --warmup on, and the syncs of the next
+    SYNC_SCANS."""
+    import torch
+
+    def feed(g):
+        return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
+                                 g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
+                                 g["scan_end_t"])
+
     done = 0
     warm = None
     if bench:
@@ -305,20 +337,17 @@ def main() -> None:
         warm["syncs_per_scan"] = count_syncs(
             feed, groups[WARM_SYNCED.start:WARM_SYNCED.stop])
         done = WARM_SYNCED.stop
-    for g in groups[done:args.warmup]:
+    for g in groups[done:warmup]:
         feed(g)
     torch.cuda.synchronize()
-    out = {"config": args.config, "first_scan": args.warmup}
-    out.update(profile_window(
-        feed, groups[args.warmup:args.warmup + scans]))
+    out = {"first_scan": warmup}
+    out.update(profile_window(feed, groups[warmup:warmup + scans]))
     out["syncs_per_scan"] = count_syncs(
-        feed, groups[args.warmup + scans:][:SYNC_SCANS])
+        feed, groups[warmup + scans:][:SYNC_SCANS])
     if warm is not None:
         out["warmup"] = warm
         out["dmom_built"] = pipe.ls.map.dmom is not None
-    print(card, flush=True)
-    print(json.dumps(out), flush=True)
-
+    return out
 
 if __name__ == "__main__":
     main()
