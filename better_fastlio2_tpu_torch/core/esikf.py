@@ -13,14 +13,19 @@ normal equations the measure reduced (the LIO measure, through
 ops/kernels.fused_hth).
 
 The JAX reference runs the iteration as one lax.while_loop on the device.
-Both paths here run it as max_iter+1 predicated passes with no host read
-(a finished pass freezes the carried values with torch.where).  The
-reference's `_mm`/`_mv` (tiny products written as broadcast reduces to
-stay inside XLA fusions) are plain `@` here.
+Both paths here run pass 0, then passes 1..max_iter each under
+utils.device.cond(~done, ...), with no host read: `done` only ever turns
+on, so the chain of conds is the while loop.  On the CPU, on eager ticks
+and in a mesh step every pass runs and a finished one's results are
+selected away; in a captured non-mesh step each pass is a CUDA-graph IF
+node that a replay skips once `done` holds.  The reference's `_mm`/`_mv`
+(tiny products written as broadcast reduces to stay inside XLA fusions)
+are plain `@` here.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -28,11 +33,19 @@ import torch
 from ..parallel import collectives
 from ..utils import s2 as s2m
 from ..utils import so3
+from ..utils.device import cond
 from ..utils.tree import tree_where
 from .state import ERR_DIM, NOISE_DIM, State, boxminus, boxplus, oplus_flat
 
 __all__ = ["get_f", "df_dx", "df_dw", "predict_mean", "predict_jacobians",
-           "predict", "MeasurementOut", "update_iterated"]
+           "predict", "MeasurementOut", "update_iterated", "default_Q"]
+
+
+def default_Q(dtype=torch.float32, device=None) -> torch.Tensor:
+    """Process noise covariance diag (use-ikfom.hpp:44-52): ng = na = 1e-4,
+    nbg = nba = 1e-5 (better_fastlio2_tpu/core/esikf.py:default_Q)."""
+    d = torch.tensor([1e-4] * 6 + [1e-5] * 6, dtype=torch.float64)
+    return torch.diag(d.to(dtype)).to(device)
 
 
 def _eye(n, ref: torch.Tensor, batch=()) -> torch.Tensor:
@@ -351,17 +364,17 @@ def update_iterated(
     reference detects it structurally:
     * a Gram (`gram`, the fused solve): the Woodbury form (P/R)[:, :K]
       (I_K + HTH (P/R)[:K,:K])^-1 with the closed-form 6x6 inverse
-      (K = 6), in the reference's lax.while_loop made sync-free: all
-      max_iter+1 passes run, `t`, `conv`, `done` and the pass count are
-      device tensors, and a pass after `done` changes nothing (every
-      carried value is torch.where(done, old, new)).  No host read, so
-      the step can be captured in a CUDA graph;
+      (K = 6);
     * otherwise the row path: normal equations from `neq` or reduced from
       the masked rows, the prior inverse once per scan, and per pass
       A = R (T P_prop T^T)^-1 + HTH in its [:K, :K] block, solved by
-      Cholesky for the K gain columns.  Its passes are predicated the
-      same way; after pass 0 the measure gets `converged` as a device
-      bool (its re-association then searches on every pass and selects).
+      Cholesky for the K gain columns.
+    Both run the reference's lax.while_loop sync-free (_run_passes): `t`,
+    `conv`, `done` and the pass count are device tensors, and pass i >= 1
+    runs under cond(~done, ...) (an IF node in a captured non-mesh step,
+    a select elsewhere).  After pass 0 the measure gets `converged` as a
+    device bool.  No host read, so the step can be captured in a CUDA
+    graph.
     The final covariance is the Joseph form, PSD by construction (the
     reference's L - K_x P cancels in f32).
 
@@ -382,19 +395,32 @@ def update_iterated(
                         n_cols, psum)
 
 
-def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
+def _run_passes(one_pass, max_iter: int, psum=None):
+    """The reference's lax.while_loop (:531) over one_pass(i, st) -> st,
+    st = (carry, iters, done): pass 0 unconditionally, then pass i under
+    cond(~done, ...) for i = 1..max_iter.  `done` only ever turns on, so
+    the chain equals the loop.  In a captured non-mesh step the first
+    cond clones pass 0's state into tensors made before its node and
+    every later pass writes into those with copy_."""
+    st = one_pass(0, None)
+    for i in range(1, max_iter + 1):
+        st = cond(~st[2], functools.partial(one_pass, i), st, mesh=psum,
+                  name="esikf.pass", inplace=i > 1)
+    return st
+
+
+def _update_gram(x_prop, P_prop, measure_fn, m0, max_iter: int, R: float,
                  limit: float, K: int, psum=None):
-    """The Gram path of update_iterated, predicated: pass i of the
-    reference's while loop is unrolled pass i here (the pass index is
-    static), and its results are selected in only while `done` is
-    false."""
+    """The Gram path of update_iterated: pass i of the reference's while
+    loop is pass i here (the pass index is static)."""
     dtype, dev = P_prop.dtype, P_prop.device
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    t = torch.zeros((), dtype=torch.int32, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    x, carry = x_prop, None
-    for i in range(max_iter + 1):
-        if i:
+
+    def one_pass(i, st):
+        if i == 0:
+            x, m = x_prop, m0
+            t = iters = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            carry, iters, _ = st
             x, t, conv, aux = carry[:4]
             m = measure_fn(x, conv, aux)
         HTH, HTh, n_valid = _normal_eqs(m, dtype, K, psum)
@@ -407,15 +433,14 @@ def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
         converged = torch.all(torch.abs(dx_) < limit) | ~valid
         t_new = t + converged.to(torch.int32)
         conv_new = converged | ((t_new == 0) & (i == max_iter - 1))
-        done_new = (t_new > 1) | (i >= max_iter)
+        done = (t_new > 1) | (i >= max_iter)
         if m.early_ok is not None:
-            done_new = done_new | (converged & m.early_ok)
-        new = (x_new, t_new, conv_new, m.aux, P_inv12, HTH, dx_,
-               n_valid.to(dtype), *blocks)
-        # pass 0 always runs (done starts false)
-        carry = new if i == 0 else tree_where(done, carry, new)
-        iters = iters + (~done).to(torch.int32)
-        done = done | done_new
+            done = done | (converged & m.early_ok)
+        carry = (x_new, t_new, conv_new, m.aux, P_inv12, HTH, dx_,
+                 n_valid.to(dtype), *blocks)
+        return carry, iters + 1, done
+
+    carry, iters, _ = _run_passes(one_pass, max_iter, psum)
     x, t, _, aux, P_inv12, HTH, dx_, n_eff, A3, A6, S2b = carry
     # P_last = T P_prop T^T rebuilt from the last executed pass's blocks
     Pl = _rows_T(P_prop, A3, A6, S2b)
@@ -425,23 +450,26 @@ def _update_gram(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
     return x, P_post, aux, {"iters": iters, "t": t, "n_eff": n_eff}
 
 
-def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
+_SOLVE_COLS = 12
+
+
+def _update_rows(x_prop, P_prop, measure_fn, m0, max_iter: int, R: float,
                  limit: float, K: int, psum=None):
-    """The row path of update_iterated, predicated like _update_gram:
-    pass i of the reference's while loop (:531) is pass i here, its
-    results selected in only while `done` is false."""
+    """The row path of update_iterated, its passes run as _update_gram's:
+    pass i of the reference's while loop (:531) is pass i here."""
     dtype, dev = P_prop.dtype, P_prop.device
     eyeP = _eye(ERR_DIM, P_prop)
     # (P_prop/R)^-1 once per scan: per pass P = T P_prop T^T with
     # block-diagonal T, so (P/R)^-1 = R Ti^T P_prop^-1 Ti
     P_sym = 0.5 * (P_prop + P_prop.T)
     Pp_inv = _cho_solve(P_sym + 1e-9 * R * eyeP, eyeP)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    t = torch.zeros((), dtype=torch.int32, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    x, carry = x_prop, None
-    for i in range(max_iter + 1):
-        if i:
+
+    def one_pass(i, st):
+        if i == 0:
+            x, m = x_prop, m0
+            t = iters = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            carry, iters, _ = st
             x, t, conv, aux = carry[:4]
             m = measure_fn(x, conv, aux)
         HTH, HTh, n_valid = _normal_eqs(m, dtype, K, psum)
@@ -455,19 +483,22 @@ def _update_rows(x_prop, P_prop, measure_fn, m, max_iter: int, R: float,
         S_inv = 0.5 * (S_inv + S_inv.T)
         A = S_inv.clone()
         A[:K, :K] += HTH
-        # (23, K) = A^-1[:, :K]; A is SPD (S_inv SPD + HTH PSD)
-        P_inv12 = _cho_solve(A, eyeP[:, :K])
+        # (23, K) = A^-1[:, :K]; A is SPD (S_inv SPD + HTH PSD).  Twelve
+        # right-hand sides whatever K: with six, cuBLAS's triangular solve
+        # (under cuSOLVER's potrs) makes a stream-ordered allocation on
+        # the H100, which a CUDA-graph conditional body cannot hold
+        P_inv12 = _cho_solve(A, eyeP[:, :_SOLVE_COLS])[:, :K]
         dx_ = P_inv12 @ HTh + P_inv12 @ (HTH @ dx_new[:K]) - dx_new
         x_new = tree_where(valid, boxplus(x, dx_), x)
         converged = torch.all(torch.abs(dx_) < limit) | ~valid
         t_new = t + converged.to(torch.int32)
         conv_new = converged | ((t_new == 0) & (i == max_iter - 1))
-        done_new = (t_new > 1) | (i >= max_iter)
-        new = (x_new, t_new, conv_new, m.aux, P, P_inv12, HTH, dx_, n_valid)
-        # pass 0 always runs (done starts false)
-        carry = new if i == 0 else tree_where(done, carry, new)
-        iters = iters + (~done).to(torch.int32)
-        done = done | done_new
+        done = (t_new > 1) | (i >= max_iter)
+        carry = (x_new, t_new, conv_new, m.aux, P, P_inv12, HTH, dx_,
+                 n_valid)
+        return carry, iters + 1, done
+
+    carry, iters, _ = _run_passes(one_pass, max_iter, psum)
     x, t, _, aux, P, P_inv12, HTH, dx_, n_eff = carry
     P_post = _joseph(x, x_prop, P, P_inv12, HTH, dx_, R, K)
     return x, P_post, aux, {"iters": iters, "t": t, "n_eff": n_eff}

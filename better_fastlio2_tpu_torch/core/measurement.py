@@ -13,21 +13,21 @@ or the dense moment table), then one of two solve forms.
   once per scan, the rows whose voxel moved when more than 5% moved.
   With solve_compact = B the live lanes also go into a (16, B) buffer, and
   the pass takes K1 over that buffer when they fit, K1 over all N lanes
-  otherwise.  The form reads nothing on the host, as the reference's
-  lax.cond sites become device selects: the refresh runs at its fixed
-  size on every pass and its results are selected by the trigger, and
-  both widths of K1 run and the result is selected by `use_c`.
+  otherwise.
 * The row form: every pass gates the rows (robust s-gate) and reduces
   them to HTH / HTh with ops/kernels.fused_hth, without materialising
   them.  The association reruns on every converged pass (reference
   semantics), or once per scan with the lazy refresh under
-  single_association.  Its lax.cond sites are device selects too: the
-  re-association searches on every pass after the first and `converged`
-  selects its result, and the lazy refresh runs at its fixed size and
-  its trigger selects it.
+  single_association.
 
 Neither form reads anything on the host, nor does the association (the
-hash probe runs its rounds predicated).
+hash probe runs its rounds predicated).  The reference's lax.cond sites
+(the refresh and its re-solve, the compaction, the width of the solve,
+the row form's re-association and lazy refresh) go through
+utils.device.cond: CUDA-graph IF nodes in a captured non-mesh step, so
+that a replay runs a branch only when its device gate holds; device
+selects on the CPU, on eager ticks and in a mesh step, where both
+branches run and the gate selects.
 """
 
 from __future__ import annotations
@@ -44,8 +44,7 @@ from ..ops.kernels import (_OK, _VAL, SOA_CH, fused_hth, fused_normal_eqs,
                            pack_soa)
 from ..parallel import collectives
 from ..utils import so3
-from ..utils.device import nonzero_static
-from ..utils.tree import tree_where
+from ..utils.device import cond, conditional, if_node, nonzero_static
 from .esikf import MeasurementOut
 from .state import State
 
@@ -433,17 +432,17 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
                       extrinsic_est: bool, single_association: bool,
                       refresh_budget: int, psum=None):
     """The row-form measure closure (see make_measure_fn), sync-free
-    (reference :515-558): its two lax.cond sites are device selects.
+    (reference :515-558): its two lax.cond sites are utils.device.cond.
 
     The association gate: under single_association it is `not
     aux.searched`, true on pass 0 alone (known statically: pass 0
     searches, later passes do not); otherwise it is `converged`, which
-    is a device bool after pass 0, so every later pass searches and
-    `converged` selects the fresh association or keeps the cached one.
-    The lazy refresh (single_association) runs at its fixed size on
-    every pass after the search and `fire` selects it, as the fused form
-    does; on the search pass no row has moved, so it cannot fire there
-    and is skipped.
+    is a device bool after pass 0, so every later pass searches under
+    cond(converged, ...).  The lazy refresh (single_association) runs
+    under cond(fire, ...) on every pass after the search, at its fixed
+    size; on the search pass no row has moved, so it cannot fire there
+    and is skipped.  A pass after the first owns its aux (the ESIKF
+    carry), so both conds write into it in place.
 
     The reference's Jacobian rows (laserMapping.cpp:1966-2002) are
     [n | p_imu x C | p_body x (R_il^T C) | C] with C = R_wi^T n.  K2 takes
@@ -471,25 +470,33 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
 
         # a host gate (pass 0 passes converged=True; single association
         # searches on pass 0 alone) searches or not; a device gate
-        # searches and selects
+        # searches under cond
         gate = not aux.searched if single_association else converged
-        if gate is not False:
+
+        def search(_):
             # a fresh aux: nothing of an earlier pass's association leaks
             with record_function("lio.associate"):
                 n, d, ok = search_rows(p_world, pts_valid)
-            fresh = MeasureAux(normal=n, d=d, fit_ok=ok, searched=True,
-                               assoc_ijk=ijk_now, refreshed=false)
-            aux = fresh if gate is True else tree_where(gate, fresh, aux)
+            return MeasureAux(normal=n, d=d, fit_ok=ok, searched=True,
+                              assoc_ijk=ijk_now, refreshed=false)
+
+        if gate is not False:
+            aux = cond(gate, search, aux, mesh=psum, name="measure.search",
+                       inplace=True)
         elif lazy:
             need = pts_valid & torch.any(ijk_now != aux.assoc_ijk, dim=-1)
             n_need = _global(torch.sum(need.to(torch.int32)), psum)
             fire = converged & ~aux.refreshed & (n_need * 20 > n_val_scan)
-            with record_function("lio.refresh"):
-                fresh = _budgeted_refresh(
-                    aux, p_world, ijk_now, pts_valid, search_rows,
-                    refresh_budget, N)._replace(
-                        refreshed=torch.ones_like(aux.refreshed))
-            aux = tree_where(fire, fresh, aux)
+
+            def refresh(a):
+                with record_function("lio.refresh"):
+                    return _budgeted_refresh(
+                        a, p_world, ijk_now, pts_valid, search_rows,
+                        refresh_budget, N)._replace(
+                            refreshed=torch.ones_like(a.refreshed))
+
+            aux = cond(fire, refresh, aux, mesh=psum, name="measure.refresh",
+                       inplace=True)
 
         pd2 = torch.sum(aux.normal * p_world, dim=-1) + aux.d
         srob = 1.0 - 0.9 * torch.abs(pd2) / sqrt_body
@@ -525,16 +532,22 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
                         refresh_budget: int, early_converge: bool = False,
                         solve_compact: int = 0, psum=None):
     """The fused-solve measure closure (see make_measure_fn), sync-free
-    (reference :582-746): every lax.cond of the reference is a device
-    select here, so a pass reads nothing on the host.
+    (reference :582-746): each lax.cond of the reference is a
+    utils.device.cond (or, for the width of the solve, two IF nodes), so
+    a pass reads nothing on the host.
 
     solve_compact = B (0 < B < N): lanes with fit_ok = 0 or valid = 0 add
     exactly zero to the Gram in every pass, so each association pass also
     gathers the live lanes, ascending, into a zero-filled (16, B) buffer
-    (`soa_c`; all zeros when they do not fit) with `use_c` = "they fit";
-    every solve pass runs K1 over both buffers and selects by `use_c`.  As
-    in the reference, n_moved then counts only live lanes, and a dead lane
-    comes back only through the refresh."""
+    (`soa_c`; the gather under cond(use_c, ...), all zeros when they do
+    not fit) with `use_c` = "they fit"; every solve pass runs K1 over the
+    compacted buffer when `use_c` holds and over the full one otherwise.
+    As in the reference, n_moved then counts only live lanes, and a dead
+    lane comes back only through the refresh.
+
+    The refresh and its re-solve run under one cond(fire, ...) that
+    writes into the pass's aux and K1 output in place (the pass owns
+    them)."""
     N = pts_body.shape[0]
     dtype = pts_body.dtype
     dev = pts_body.device
@@ -545,24 +558,39 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
     B = int(solve_compact) if 0 < int(solve_compact) < N else 0
 
     def with_compact(aux):
-        """aux with soa_c / use_c derived from aux.soa."""
+        """aux with soa_c / use_c derived from aux.soa (reference :630-641:
+        the live lanes gathered when they fit, zeros otherwise)."""
         if not B:
             return aux
         live = (aux.soa[_OK] > 0) & (aux.soa[_VAL] > 0)
         use = torch.sum(live.to(torch.int32)) <= B
-        idx = nonzero_static(live, B, N)
-        cols = aux.soa[:, torch.clamp(idx, max=N - 1)]
-        return aux._replace(
-            soa_c=torch.where((idx < N)[None, :] & use, cols, 0.0),
-            use_c=use)
+
+        def gather(_):
+            idx = nonzero_static(live, B, N)
+            cols = aux.soa[:, torch.clamp(idx, max=N - 1)]
+            return torch.where((idx < N)[None, :], cols, 0.0)
+
+        soa_c = cond(use, gather, aux.soa.new_zeros(SOA_CH, B), mesh=psum,
+                     name="measure.compact", inplace=True)
+        return aux._replace(soa_c=soa_c, use_c=use)
 
     def solve(aux, params):
+        """K1 over soa_c when use_c holds, else over soa (reference :653):
+        in a captured non-mesh step two IF nodes that write one (9, 8)
+        buffer made before them; elsewhere both run and use_c selects."""
         if not B:
             return fused_normal_eqs(aux.soa, params)
-        G_c, mv_c = fused_normal_eqs(aux.soa_c, params)
-        G_f, mv_f = fused_normal_eqs(aux.soa, params)
-        return (torch.where(aux.use_c, G_c, G_f),
-                torch.where(aux.use_c, mv_c, mv_f))
+        if not conditional(aux.use_c, psum):
+            G_c, mv_c = fused_normal_eqs(aux.soa_c, params)
+            G_f, mv_f = fused_normal_eqs(aux.soa, params)
+            return (torch.where(aux.use_c, G_c, G_f),
+                    torch.where(aux.use_c, mv_c, mv_f))
+        buf = torch.empty((9, 8), dtype=aux.soa.dtype, device=dev)
+        with if_node(aux.use_c, "measure.width"):
+            fused_normal_eqs(aux.soa_c, params, out=buf)
+        with if_node(~aux.use_c, "measure.width"):
+            fused_normal_eqs(aux.soa, params, out=buf)
+        return buf[:8], buf[8, 0]
 
     def build_aux(s, aux):
         p_world = transform_to_world(s, pts_body)
@@ -609,12 +637,17 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
         if refresh_budget > 0:
             fire = (converged & ~aux.refreshed
                     & (n_moved * 20.0 > n_val_scan))
-            with record_function("lio.refresh"):
-                aux = tree_where(fire, refresh(s, aux), aux)
-                # re-solve over the refreshed association
-                G_r, mv_r = solve(aux, params)
-            G = torch.where(fire, G_r, G)
-            n_moved = _global(torch.where(fire, mv_r, n_moved_l), psum)
+
+            def refresh_and_solve(op):
+                with record_function("lio.refresh"):
+                    a = refresh(s, op[0])
+                    # re-solve over the refreshed association
+                    return (a, *solve(a, params))
+
+            aux, G, n_moved_l = cond(fire, refresh_and_solve,
+                                     (aux, G, n_moved_l), mesh=psum,
+                                     name="measure.refresh", inplace=True)
+            n_moved = _global(n_moved_l, psum)
 
         # re-association would change nothing only when the moved fraction
         # is below the trigger (judged even after the refresh is spent)

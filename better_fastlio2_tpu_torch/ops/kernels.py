@@ -28,7 +28,11 @@ On a CUDA tensor `fused_normal_eqs` and `fused_hth` launch the
 hand-written kernels csrc/fused_normal_eqs.cu and csrc/fused_hth.cu, one
 thread-block cluster per call; on a CPU tensor they run the plain versions
 `fused_normal_eqs_reference` and `fused_hth_reference`.  Nothing else
-falls back.  `_neq_rows` and `_hth_rows` build the rows the kernels reduce
+falls back.  Each wrapper counts its calls on the host (`launches`) and,
+while the CUDA graph of a step captures (utils.device.step_capture), also
+adds one to a device-side int64 counter beside the launch
+(`launch_counter`): a replay then adds the launches it ran, and a
+conditional body that does not run adds nothing.  `_neq_rows` and `_hth_rows` build the rows the kernels reduce
 without materialising them; chip_smoke.py times a matrix product on them
 as each kernel's library yardstick.
 """
@@ -39,7 +43,10 @@ import ctypes
 
 import torch
 
-__all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs",
+from ..utils.device import in_step_capture
+
+__all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs", "launch_counter",
+           "device_launches", "reset_device_launches",
            "fused_normal_eqs_reference", "fused_normal_eqs_tolerance",
            "fused_normal_eqs_handles",
            "fused_hth", "fused_hth_reference", "fused_hth_tolerance",
@@ -172,6 +179,46 @@ def _launcher(name: str):
     return fn
 
 
+_counters: dict[tuple[str, int], torch.Tensor] = {}
+
+
+def launch_counter(name: str, dev: torch.device) -> torch.Tensor:
+    """The () int64 device counter of kernel `name`'s launches made under a
+    CUDA graph capture on `dev` (made zero at first use, which must come
+    before the capture: pipeline/graphs.StepGraph makes every kernel's
+    before it captures)."""
+    key = (name, dev.index if dev.index is not None
+           else torch.cuda.current_device())
+    c = _counters.get(key)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: no launch counter on {dev} made "
+                               "before the capture")
+        c = _counters[key] = torch.zeros((), dtype=torch.int64, device=dev)
+    return c
+
+
+def device_launches(name: str) -> int:
+    """Kernel `name`'s launches that captured graphs ran since the last
+    reset, summed over devices: one host read of each counter."""
+    return sum(int(c) for (k, _), c in _counters.items() if k == name)
+
+
+def reset_device_launches() -> None:
+    """Every device counter set to 0 (on its device's current stream)."""
+    for c in _counters.values():
+        c.zero_()
+
+
+def _count(wrapper, dev: torch.device) -> None:
+    """The wrapper's host count, and in the capture of a step
+    (utils.device.step_capture) its device counter beside the launch
+    (inside the conditional body the launch is in, if any)."""
+    wrapper.launches += 1
+    if in_step_capture():
+        launch_counter(wrapper.__name__, dev).add_(1)
+
+
 def _launch(fn, dev: torch.device, *args) -> int:
     """Call a launch function on the current stream of `dev` (PyTorch's
     raw stream handle: a capturing CUDA graph's stream during capture),
@@ -183,20 +230,28 @@ def _launch(fn, dev: torch.device, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
-def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
+def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor,
+                     out: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(G (8, 8) f32, n_moved () f32) of a packed scan under the pose in
     `params` ((16,) f32: R row-major 9 | t 3 | voxel size | 0 0 0).
 
     CUDA tensors: one launch of the CUDA kernel on the current stream
-    (counted in `fused_normal_eqs.launches`), G and n_moved views of one
-    (9, 8) buffer (G its first 64 floats, n_moved the 65th); soa must be
-    a contiguous (16, N) f32 tensor and params a contiguous (16,) f32
-    tensor on the same device.  CPU tensors: the plain version.  Anything
-    else raises."""
+    (counted in `fused_normal_eqs.launches`, and under a capture in its
+    launch_counter), G and n_moved views of one (9, 8) buffer (G its first
+    64 floats, n_moved the 65th): `out` when given (a contiguous (9, 8)
+    f32 tensor the kernel overwrites), else a fresh one; soa must be a
+    contiguous (16, N) f32 tensor and params a contiguous (16,) f32
+    tensor on the same device.  CPU tensors: the plain version (`out`,
+    when given, takes its result).  Anything else raises."""
     dev = soa.device
     if dev.type == "cpu" and params.device.type == "cpu":
-        return fused_normal_eqs_reference(soa, params)
+        G, mv = fused_normal_eqs_reference(soa, params)
+        if out is None:
+            return G, mv
+        out[:8].copy_(G)
+        out[8, 0] = mv
+        return out[:8], out[8, 0]
     if dev.type != "cuda" or params.device != dev:
         raise ValueError(
             f"fused_normal_eqs: soa on {dev}, params on "
@@ -216,14 +271,19 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor
     n = soa.shape[1]
     if n >= 2 ** 31 // SOA_CH:
         raise ValueError(f"fused_normal_eqs: N={n} too large")
+    if out is None:
+        out = torch.empty((9, 8), dtype=torch.float32, device=dev)
+    elif (out.shape != (9, 8) or out.dtype != torch.float32
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError("fused_normal_eqs: out must be a contiguous (9, 8) "
+                         f"float32 tensor on {dev}")
     fn = _launcher("fused_normal_eqs")
-    out = torch.empty((9, 8), dtype=torch.float32, device=dev)
     err = _launch(fn, dev, soa.data_ptr(), soa.stride(0), params.data_ptr(),
                   n, out.data_ptr())
     if err != 0:
         raise RuntimeError(f"fused_normal_eqs: CUDA launch failed (error "
                            f"{err})")
-    fused_normal_eqs.launches += 1
+    _count(fused_normal_eqs, dev)
     return out[:8], out[8, 0]
 
 
@@ -342,7 +402,7 @@ def fused_hth(pts_body, p_imu, normals, C, pd2, sel, extrinsic: bool = False
                   sel.data_ptr(), n, int(extrinsic), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"fused_hth: CUDA launch failed (error {err})")
-    fused_hth.launches += 1
+    _count(fused_hth, dev)
     return out[:12], out[12]
 
 

@@ -30,6 +30,15 @@ PyTorch's idiom, as torch.cuda.graphs documents it:
   of the first steady window), run eagerly through the same tick;
   nothing is run twice and no throwaway tick touches the map.
 
+The gates of a non-mesh step (the ESIKF pass loop, the refresh, the
+compaction, the width of the solve, the row form's re-association) are
+captured as CUDA-graph conditional (IF) nodes (utils.device.cond): a
+replay runs only the passes and branches its device predicates pick, as
+the reference's compiled While and Conditional ops do.  A mesh step keeps
+their select form.  The hand-written kernels count the launches a replay
+runs on the device (ops/kernels.launch_counter, bumped beside each launch
+inside the graph, so a skipped body counts nothing).
+
 Capture failures raise; nothing falls back to eager execution.  The
 cyclic garbage collector is held during capture: freeing another, dead
 graph there would invalidate the capture.  The capture's error mode is
@@ -47,20 +56,19 @@ import torch
 
 from ..ops import kernels
 from ..parallel import collectives
-from ..utils.tree import tree_tensors
+from ..utils import device as devmod
+from ..utils.tree import tree_clone, tree_tensors
 
-__all__ = ["StepGraph", "graph_steps", "KERNELS", "captured", "replayed"]
+__all__ = ["StepGraph", "graph_steps", "KERNELS", "captured"]
 
 _KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
 # the hand-written kernels a step may launch, counted in the graph by the
 # handles of their device functions
 KERNELS = ("fused_normal_eqs", "fused_hth")
 # each kernel's wrapper calls made while a StepGraph captured (they launch
-# nothing then), and the launches StepGraph replays ran (each graph's
-# kernel nodes of the kernel, once a replay): the launches that ran are
-# the wrappers' counts less the first plus the second
+# nothing then): the launches that ran are the wrappers' counts less
+# these, plus the replays' (ops/kernels.device_launches)
 captured = dict.fromkeys(KERNELS, 0)
-replayed = dict.fromkeys(KERNELS, 0)
 
 
 def graph_steps(window: int, unroll: int) -> int:
@@ -74,14 +82,8 @@ def _static_copy(ls):
     """The state the graph reads and writes: a fresh copy of every leaf
     but the map tables, which the steady step updates in place and which
     stay the pipeline's own tensors."""
-    return ls._replace(**{f: _clone_tree(getattr(ls, f))
+    return ls._replace(**{f: tree_clone(getattr(ls, f))
                           for f in ls._fields if f != "map"})
-
-
-def _clone_tree(a):
-    if isinstance(a, torch.Tensor):
-        return a.clone()
-    return type(a)(*(_clone_tree(x) for x in a))
 
 
 def _leaf_pairs(dst, src, path="ls"):
@@ -143,27 +145,36 @@ def _kernel_name(cuda, p: _KernelNodeParams) -> str:
     return name.value.decode()
 
 
-def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
+def _graph_nodes(cuda, g: int) -> list[int]:
+    """The nodes of one CUgraph (cuGraphGetNodes)."""
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(ctypes.c_void_p(g), None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(ctypes.c_void_p(g), nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    return list(nodes)
+
+
+def _node_counts(graph: torch.cuda.CUDAGraph, bodies=()) -> dict:
     """Nodes of the captured graph through the CUDA API of libcuda (the
-    graph must have been made with keep_graph=True): all nodes, by type,
-    kernel nodes, K1's and K2's kernel nodes (`fused_normal_eqs`,
+    graph must have been made with keep_graph=True), its conditional
+    nodes' bodies (`bodies`, the body graphs its capture opened,
+    utils.device.bodies) included: all nodes, by type, kernel nodes,
+    conditional nodes (`conditional`), the nodes inside bodies
+    (`body_nodes`), K1's and K2's kernel nodes (`fused_normal_eqs`,
     `fused_hth`: those whose function or kernel handle is the kernel's)
     and NCCL's (`nccl`: kernel nodes whose function name starts with
     "nccl", the collectives a mesh step captured; NCCL may also add
     memcpy nodes, counted under their type)."""
     handles = {k: getattr(kernels, f"{k}_handles")() for k in KERNELS}
     cuda = ctypes.CDLL("libcuda.so.1")
-    g = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    if cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    top = _graph_nodes(cuda, graph.raw_cuda_graph())
+    inner = [n for b in bodies for n in _graph_nodes(cuda, b)]
     n_nccl = 0
     n_k = dict.fromkeys(KERNELS, 0)
     by_type: dict[str, int] = {}
-    for node in nodes:
+    for node in top + inner:
         kind = ctypes.c_int(-1)
         if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
                                    ctypes.byref(kind)) != 0:
@@ -181,8 +192,14 @@ def _node_counts(graph: torch.cuda.CUDAGraph) -> dict:
             n_k[mine[0]] += 1
         elif _kernel_name(cuda, p).startswith("nccl"):
             n_nccl += 1
-    return {"nodes": n.value, "kernel_nodes": by_type.get("kernel", 0),
-            **n_k, "nccl": n_nccl, "by_type": by_type}
+    if by_type.get("conditional", 0) != len(bodies):
+        raise RuntimeError(f"{by_type.get('conditional', 0)} conditional "
+                           f"nodes for {len(bodies)} bodies captured")
+    return {"nodes": len(top) + len(inner),
+            "kernel_nodes": by_type.get("kernel", 0),
+            "conditional": by_type.get("conditional", 0),
+            "body_nodes": len(inner), **n_k, "nccl": n_nccl,
+            "by_type": by_type}
 
 
 class StepGraph:
@@ -203,11 +220,13 @@ class StepGraph:
         self.acc_norm = acc_norm
         self.stream = torch.cuda.Stream(device=acc_norm.device)
         self.graph = None
+        self.body_pool = None  # torch.cuda.MemPool of the IF node bodies
         self.ls = None
         self.static_in = None
         self.static_info = None
         self.capture_s = None
-        # {"nodes", "kernel_nodes", "fused_normal_eqs", "fused_hth", ...}
+        # {"nodes", "kernel_nodes", "conditional", "body_nodes",
+        #  "fused_normal_eqs", "fused_hth", ...}, bodies included
         self.nodes = None
         self.captured_launches = None  # hand-written kernel launches
         self.captured_collectives = None  # mesh collectives at capture
@@ -229,6 +248,12 @@ class StepGraph:
             self.static_info = torch.empty_like(infos)
         cur.wait_stream(self.stream)
         torch.cuda.synchronize()
+        for k in KERNELS:  # the device counters exist before the capture
+            kernels.launch_counter(k, self.acc_norm.device)
+        devmod.bodies.clear()
+        # the conditional bodies' memory: a pool of the graph's own, kept
+        # as long as the graph
+        self.body_pool = torch.cuda.MemPool()
         before = {k: getattr(kernels, k).launches for k in KERNELS}
         coll0 = dict(collectives.calls)
         t0 = time.perf_counter()
@@ -241,8 +266,10 @@ class StepGraph:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
+            with devmod.step_capture(self.body_pool,
+                                            self.acc_norm.device), \
+                    torch.cuda.graph(graph, stream=self.stream,
+                                     capture_error_mode="thread_local"):
                 out, infos_g = self._run(self.ls, self.static_in)
                 self.static_info.copy_(infos_g)
                 for dst, src in zip(tree_tensors(self.ls), tree_tensors(out)):
@@ -259,7 +286,8 @@ class StepGraph:
         self.captured_collectives = {k: collectives.calls[k] - v
                                      for k, v in coll0.items()}
         self.graph = graph
-        self.nodes = _node_counts(graph)
+        self.nodes = _node_counts(graph, devmod.bodies)
+        devmod.bodies.clear()
         for k, v in self.captured_launches.items():
             captured[k] += v
         return self.ls, infos
@@ -285,6 +313,4 @@ class StepGraph:
         self.static_in.copy_(rows, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        for k in KERNELS:
-            replayed[k] += self.nodes[k]
         return self.static_info

@@ -9,6 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
                print each kernel's registers, shared memory and spills
                (ptxas -v; any spill fails), and the thread-block cluster
                size each kernel's setup took on this card;
+     (after the build: `if_node_cost`, the graph-replayed device time of
+     one CUDA-graph IF node around a one-element fill, taken and
+     skipped, beside the bare fill)
   2. kernels — hold K1 (fused_normal_eqs) against its plain PyTorch
                version on the card at the main path's shapes (and ragged
                ones; a view with a storage offset, which takes the
@@ -38,11 +41,20 @@ Phases (any failure exits non-zero and prints no result line):
                but each program's first, which runs eagerly and captures
                it: the phase fails unless every other scan replayed and
                a replayed scan made at most one torch sync (the info
-               readback); the kernel's launches inside the graph are its
-               kernel nodes (found by its handle, equal to its calls at
-               capture) once a replay, and its pass-0 call inside the
-               graph is read back from probe buffers the capture wrote
-               (GraphProbe) on the check scans; the first 24 scans run
+               readback); the graph holds CUDA-graph conditional (IF)
+               nodes for the ESIKF passes after the first, the refresh,
+               the compaction, the two K1 widths and the row form's
+               re-association (slice 10; printed a tick with the nodes
+               inside their bodies), the kernel's kernel nodes (found by
+               its handle, bodies included) equal its calls at capture,
+               and the launches the replays ran, counted on the device,
+               must equal what each replayed scan's ESIKF passes and
+               refresh imply (K1 once a pass and once for a refresh's
+               re-solve, K2 once a pass; passes and refresh fires a scan
+               printed); its first call inside an ESIKF pass body is read
+               back from probe buffers the capture wrote, with a ran flag
+               (GraphProbe), on the first replay from each check scan on
+               that ran that body; the first 24 scans run
                again with eager ticks (graphed=False) and must equal the
                replays bit for bit; nvidia-smi's SM clock, power and
                temperature are sampled every 40 scans; peak memory is
@@ -80,17 +92,22 @@ Phases (any failure exits non-zero and prints no result line):
                CUDA events, as bench.py:487-520 times the device: the
                median of 10 groups, on the graph recaptured without the
                K1 probes, and on the probed one beside it); the graph's
-               nodes and K1 kernel nodes per step (by K1's handle, equal
-               to its calls at capture), the replays counted, and its
-               capture time; port reads and torch syncs per steady
+               nodes, conditional nodes and K1 kernel nodes per step (by
+               K1's handle, bodies included, equal to its calls at
+               capture), the replays counted, and its capture time; the
+               passes and refresh fires a steady scan and the K1
+               launches the replays ran (on the device, against what the
+               passes imply); port reads and torch syncs per steady
                window; peak
-               memory with the graph's pool; K1's pass-0 inputs and
-               outputs inside the graph held against the plain version;
+               memory with the graph's pool; K1's first call inside an
+               ESIKF pass body of each tick held against the plain
+               version where the body ran;
                every scan's wire row packed by the C++ packer
                (io/native.py, counted);
  10. bench_outdoor_window — the same on the outdoor sequence with
                window=16 (unroll 8: two replays a window), K1 inside the
-               graph checked at both widths (8192 and 10240);
+               graph checked at the widths whose IF body ran (8192 and
+               10240);
  11. slam    — bench.py --slam (slice 5) through SLAMPipeline: the room
                bench configuration in the window driver of phase 9 with
                keyframes, loop closure and the pose-graph back end on the
@@ -184,7 +201,9 @@ Phases (any failure exits non-zero and prints no result line):
                wire), W = 8, unroll 8, the 240 room scans through
                LIOPipeline(mesh=), the steady windows replaying one graph
                with the collectives captured in it, beside the same scans
-               without a mesh (`spmd_ref_room_window`); the trajectories
+               without a mesh (`spmd_ref_room_window`, whose gates are
+               IF nodes; the mesh step keeps its selects: no conditional
+               node, or the phase fails); the trajectories
                within 1e-6 m (bit-identical expected), the room gate, 0
                torch syncs in the steady windows, the graph's kernel,
                K1, NCCL and memcpy nodes a tick and the collectives a
@@ -520,6 +539,7 @@ def compare_k2(ins, extrinsic: bool, HTH_k, HTh_k) -> dict:
 
 def phase_build() -> None:
     from better_fastlio2_tpu_torch.ops import _build, kernels
+    from better_fastlio2_tpu_torch.utils import device
 
     t0 = time.perf_counter()
     reports = _build.build_all(force=True)
@@ -533,8 +553,9 @@ def phase_build() -> None:
         spilled = [r for r in recs if r["spill_stores"] or r["spill_loads"]]
         if spilled:
             fail(f"{name}.cu spills registers: {spilled}")
-    for name in _build.SOURCES:
+    for name in KERNELS:
         kernels._launcher(name)  # load and pick the cluster size
+    device._set_condition()  # the conditional nodes' condition kernel
     print(json.dumps({"phase": "build", "sources": _build.SOURCES,
                       "compiled": sorted(reports), "seconds": round(dt, 3),
                       "ptxas": ptxas, "clusters": kernels.cluster_info}),
@@ -730,6 +751,32 @@ def launch_floor_us() -> float:
     return graph_us(x.zero_)
 
 
+def if_node_cost(floor_us: float) -> dict:
+    """The graph-replayed device time of one CUDA-graph IF node around a
+    one-element zero_() (its condition kernel, the node and the body),
+    taken and skipped, beside the bare zero_() (`floor_us`): what each IF
+    node of a step adds (utils/device.if_node inside a step_capture)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.utils import device
+
+    x = torch.ones(1, device="cuda")
+    out = {"phase": "if_node_cost", "bare_fill_us": floor_us}
+    for taken in (True, False):
+        pred = torch.tensor(taken, device="cuda")
+
+        def fn():
+            if not torch.cuda.is_current_stream_capturing():
+                return x.zero_()  # the warm-up
+            with device.if_node(pred, "cost"):
+                x.zero_()
+
+        with device.step_capture(torch.cuda.MemPool(), x.device):
+            out["taken_us" if taken else "skipped_us"] = graph_us(fn)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def room_config():
     from better_fastlio2_tpu_torch.config import (IkdtreeConfig, LIOConfig,
                                                   MappingConfig, ShapesConfig)
@@ -785,26 +832,40 @@ SMI_EVERY = 40  # per-scan phases: nvidia-smi sampled every so many scans
 
 
 def reset_launches() -> None:
-    """Every kernel wrapper's count set to 0, and the graphs' counts of
-    the calls made while capturing and of the launches replays ran."""
+    """Every kernel wrapper's count set to 0, the graphs' counts of the
+    calls made while capturing, and the device counters of the launches
+    replays ran."""
     from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline import graphs
 
     for k in KERNELS:
         getattr(kernels, k).launches = 0
-        graphs.captured[k] = graphs.replayed[k] = 0
+        graphs.captured[k] = 0
+    kernels.reset_device_launches()
 
 
 def launches_ran() -> dict:
     """Each kernel's launches that ran since reset_launches: the wrapper's
     count (it counts where it launches, also into a capturing graph)
     less its calls while a graph captured, which ran nothing, plus the
-    kernel nodes of every graph replay (found by the kernel's handle)."""
+    launches the replays ran, counted on the device beside each launch
+    (a conditional body that did not run counts nothing).  Reads the
+    device counters: once at the end of a phase, never per scan."""
     from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline import graphs
 
     return {k: getattr(kernels, k).launches - graphs.captured[k]
-            + graphs.replayed[k] for k in KERNELS}
+            + kernels.device_launches(k) for k in KERNELS}
+
+
+def implied_launches(kernel: str, iters: int, refreshed: bool) -> int:
+    """The launches of `kernel` a scan's update runs in a replay: K1 once
+    a pass (one width) and once more for the refresh's re-solve, K2 once
+    a pass."""
+    return iters + (kernel == "fused_normal_eqs") * int(refreshed)
+
+
+PROBE_SPAN = 6  # replays kept after a check is due: the first that ran
 
 
 class GraphProbe:
@@ -814,18 +875,24 @@ class GraphProbe:
     and replay.
 
     * `widths`: the kernel's launches that ran, by the width of their
-      input: every eager call, and at each replay its graph's calls at
-      capture (the capture itself runs nothing).
-    * In each capture the first call of each width also clones its
-      inputs and outputs inside the graph, so that every replay rewrites
-      those buffers (probes).  Kept for the plain-version check after the
-      run: the eager calls numbered in `keep_eager` (1-based), the first
-      eager call of width `keep_width`, the probes of the replays
-      numbered in `keep_replays`, and the next call that runs after
-      `snap()` (the next eager call, or the next replay's probes).
+      input (after `finish()`): every eager call on the host, and every
+      replayed one on a device counter of its width that the capture
+      bumps beside the call (inside the conditional body the call is in,
+      so a body that did not run counts nothing).
+    * In each capture the first call of each width inside an ESIKF pass
+      body (an IF node, utils.device.open_nodes) also clones its inputs
+      and outputs inside the graph, so that every replay that runs the
+      body rewrites those buffers (probes), and sets a ran flag of its
+      own.  Kept for the plain-version check after the run: the eager
+      calls numbered in `keep_eager` (1-based), the first eager call of
+      width `keep_width`, and, from each replay numbered in
+      `keep_replays` and from the next call after `snap()`, the probes
+      of up to PROBE_SPAN replays (their flags zeroed before each), of
+      which `checks()` holds the first whose body ran (an eager call
+      after snap() is kept alone).
     * After each capture its graph's kernel nodes (found by the kernel's
-      handle) must equal the kernel's calls at capture (`graph_nodes`
-      lists both per capture)."""
+      handle, conditional bodies included) must equal the kernel's calls
+      at capture (`graph_nodes` lists both per capture)."""
 
     def __init__(self, kernel: str, keep_eager=(), keep_width=None,
                  keep_replays=()):
@@ -836,11 +903,15 @@ class GraphProbe:
         self.keep_eager, self.keep_width = set(keep_eager), keep_width
         self.keep_replays = set(keep_replays)
         self.widths: dict[int, int] = {}
+        self.counters: dict = {}  # width -> device count of replayed calls
         self.eager_calls = self.replays = 0
+        # (inputs, kwargs, outputs, ran flag or None when eager, group)
         self.kept: list[tuple] = []
         self.graph_nodes: list[tuple[int, int]] = []
+        self.body_checks = 0
         self._pending = None
         self._snap = False
+        self._span = self._group = 0
         self._real_capture = graphs.StepGraph.warm_up_and_capture
         self._real_replay = graphs.StepGraph.replay
 
@@ -850,7 +921,9 @@ class GraphProbe:
 
     @staticmethod
     def _keep(args, kw, out) -> tuple:
-        return ([a.clone() for a in args], dict(kw), [o.clone() for o in out])
+        return ([a.clone() for a in args],
+                {k: v for k, v in kw.items() if k != "out"},
+                [o.clone() for o in out])
 
     def snap(self) -> None:
         self._snap = True
@@ -858,25 +931,38 @@ class GraphProbe:
     def __call__(self, *args, **kw):
         import torch
 
+        from better_fastlio2_tpu_torch.utils.device import open_nodes
+
         out = self.real(*args, **kw)
         width = self._width(args)
         if self._pending is not None and torch.cuda.is_current_stream_capturing():
             p = self._pending
-            p["widths"][width] = p["widths"].get(width, 0) + 1
-            if width not in p["probed"]:
+            if width not in self.counters:
+                fail(f"{self.kernel}: width {width} first called in a "
+                     "capture")
+            self.counters[width].add_(1)
+            if "esikf.pass" in open_nodes() and width not in p["probed"]:
                 p["probed"].add(width)
+                p["flags"][len(p["probes"])].fill_(True)
                 p["probes"].append(self._keep(args, kw, out))
             return out
         self.eager_calls += 1
         self.widths[width] = self.widths.get(width, 0) + 1
+        if width not in self.counters:
+            self.counters[width] = torch.zeros(
+                (), dtype=torch.int64, device=args[0].device)
         if (self._snap or self.eager_calls in self.keep_eager
                 or (width == self.keep_width and self.widths[width] == 1)):
             self._snap = False
-            self.kept.append(self._keep(args, kw, out))
+            self.kept.append((*self._keep(args, kw, out), None, None))
         return out
 
     def _capture(self, graph, ls, rows):
-        self._pending = {"widths": {}, "probed": set(), "probes": []}
+        import torch
+
+        self._pending = {"probed": set(), "probes": [],
+                         "flags": torch.zeros(8, dtype=torch.bool,
+                                              device=rows.device)}
         try:
             out = self._real_capture(graph, ls, rows)
         finally:
@@ -890,17 +976,20 @@ class GraphProbe:
         return out
 
     def _replay(self, graph, rows):
+        p = getattr(graph, "probe", None)
+        if (self._snap or self.replays + 1 in self.keep_replays) and p:
+            self._snap, self._span = False, PROBE_SPAN
+            self._group += 1
+        keep = self._span > 0 and p is not None and p["probes"]
+        if keep:
+            p["flags"].zero_()
         out = self._real_replay(graph, rows)
         self.replays += 1
-        p = getattr(graph, "probe", None)
-        if p is None:  # a graph captured outside this probe
-            return out
-        for w, c in p["widths"].items():
-            self.widths[w] = self.widths.get(w, 0) + c
-        if (self._snap or self.replays in self.keep_replays) and p["probes"]:
-            self._snap = False
-            for ins, kw, outs in p["probes"]:
-                self.kept.append(self._keep(ins, kw, outs))
+        if keep:
+            self._span -= 1
+            for j, (ins, kw, outs) in enumerate(p["probes"]):
+                self.kept.append((*self._keep(ins, kw, outs),
+                                  p["flags"][j].clone(), self._group))
         return out
 
     def __enter__(self):
@@ -922,11 +1011,33 @@ class GraphProbe:
         graphs.StepGraph.warm_up_and_capture = self._real_capture
         graphs.StepGraph.replay = self._real_replay
 
+    def finish(self) -> dict[int, int]:
+        """`widths` with the replayed calls read from the device counters
+        (one read each, after the run)."""
+        for w, c in self.counters.items():
+            self.widths[w] = self.widths.get(w, 0) + int(c)
+            c.zero_()
+        return self.widths
+
     def checks(self) -> list[dict]:
-        if self.kernel == "fused_hth":
-            return [compare_k2(ins, kw["extrinsic"], *outs)
-                    for ins, kw, outs in self.kept]
-        return [compare_k1(*ins, *outs) for ins, kw, outs in self.kept]
+        """The kept calls against the plain version: every eager one, and
+        from each group of kept replays the first probe (of each width)
+        whose body ran.  `body_checks` counts the latter."""
+        out, taken = [], set()
+        for ins, kw, outs, ran, group in self.kept:
+            if ran is not None:
+                key = (group, self._width(ins))
+                if key in taken or not bool(ran):
+                    continue
+                taken.add(key)
+            if self.kernel == "fused_hth":
+                c = compare_k2(ins, kw["extrinsic"], *outs)
+            else:
+                c = compare_k1(*ins, *outs)
+            c["in_conditional_body"] = ran is not None
+            out.append(c)
+        self.body_checks = sum(c["in_conditional_body"] for c in out)
+        return out
 
 
 SMI_QUERY = "clocks.sm,power.draw,temperature.gpu"
@@ -976,20 +1087,31 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
     """Drive LIOPipeline per scan over `groups` (on CUDA each scan a
     replay of its program's one-tick graph, captured at the program's
     first scan); return the per-scan record, each kernel's launches that
-    ran in the run (counts set to 0 just before; replays counted by the
-    graphs' kernel nodes) and `kernel`'s by the width of their input, the
-    graph replays, the host syncs per scan (the port's to_host reads,
-    and on CUDA every synchronising call torch reports), SM clock and
-    power samples, and the re-checks of `kernel` (GraphProbe: pass 0 of
-    the tick on each of `check_scans`, read from the graph's probes or
-    from the eager call, and its first eager call of width
-    `check_width`), compared after the run.  Then, on CUDA, the first
-    PREFIX_SCANS scans again with eager ticks (graphed=False): their
-    results must equal the replays' bit for bit."""
+    ran in the run (counts set to 0 just before; the replays' counted on
+    the device and read once after the run) and `kernel`'s by the width
+    of their input, each scan's launches (an eager scan's counted on the
+    host, a replayed scan's implied by its ESIKF passes and refresh,
+    whose sum must equal the device count), the passes and refresh fires
+    of the replayed scans, the graph replays, the host syncs per scan
+    (the port's to_host reads, and on CUDA every synchronising call
+    torch reports), SM clock and power samples, and the re-checks of
+    `kernel` (GraphProbe: its first call inside an ESIKF pass body on
+    the first replay from each of `check_scans` on that ran the body,
+    read from the graph's probes or from the eager call, and its first
+    eager call of width `check_width`), compared after the run.  Then,
+    on CUDA, the first PREFIX_SCANS scans again with eager ticks
+    (graphed=False): their results must equal the replays' bit for
+    bit."""
     import torch
 
+    from better_fastlio2_tpu_torch.ops import kernels
+    from better_fastlio2_tpu_torch.pipeline import graphs
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
     from better_fastlio2_tpu_torch.utils.device import host_syncs
+
+    def host_ran():  # launches made eagerly so far (no device read)
+        return {k: getattr(kernels, k).launches - graphs.captured[k]
+                for k in KERNELS}
 
     t_run = time.perf_counter()
     pipe = LIOPipeline(cfg, device=device)
@@ -999,6 +1121,7 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
         torch.cuda.reset_peak_memory_stats()
     gt, scan_ms, syncs, torch_syncs, outs, replays = [], [], [], [], [], []
     launches = {name: [] for name in KERNELS}
+    implied = dict.fromkeys(KERNELS, 0)  # the replayed scans' launches
     captures = []  # (scan, program) of each graph captured
     reset_launches()
     host_syncs.reset()
@@ -1013,7 +1136,7 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                     gt.append(g["gt_pos"])
                 if smi is not None and i % SMI_EVERY == 0:
                     smi.start(i)
-                l0, r0, g0 = launches_ran(), probe.replays, pipe.graph
+                l0, r0, g0 = host_ran(), probe.replays, pipe.graph
                 s0, w0 = host_syncs.count, len(caught)
                 if i in check_scans:
                     probe.snap()
@@ -1030,9 +1153,14 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                     captures.append((i, pipe._graph_of))
                 if out is not None:
                     scan_ms.append(1e3 * dt)
-                    ran = launches_ran()
+                    ran, rep = host_ran(), probe.replays > r0
                     for name in KERNELS:
-                        launches[name].append(ran[name] - l0[name])
+                        n = ran[name] - l0[name]
+                        if rep and n == 0 and cuda:
+                            n = implied_launches(name, out["iters"],
+                                                 out["refreshed"])
+                            implied[name] += n * (name == kernel)
+                        launches[name].append(n)
                     syncs.append(host_syncs.count - s0)
                     torch_syncs.append(n_torch)
                     replays.append(probe.replays - r0)
@@ -1041,6 +1169,12 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
             if cuda:
                 torch.cuda.set_sync_debug_mode("default")
     totals = launches_ran()
+    device_ran = {k: kernels.device_launches(k) for k in KERNELS}
+    widths = probe.finish()
+    if cuda and device_ran[kernel] != implied[kernel]:
+        fail(f"{kernel}: the replays ran {device_ran[kernel]} launches "
+             f"(counted on the device), their passes and refreshes imply "
+             f"{implied[kernel]}")
     peak = torch.cuda.max_memory_allocated() if cuda else None
     reserved = torch.cuda.max_memory_reserved() if cuda else None
     traj = np.array(pipe.trajectory)
@@ -1050,12 +1184,16 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
         graph = {"of": pipe._graph_of, "capture_s": gr.capture_s,
                  "nodes": gr.nodes["nodes"],
                  "kernel_nodes": gr.nodes["kernel_nodes"],
+                 "conditional_nodes": gr.nodes["conditional"],
+                 "body_nodes": gr.nodes["body_nodes"],
                  "fused_normal_eqs_nodes": gr.nodes["fused_normal_eqs"],
                  "fused_hth_nodes": gr.nodes["fused_hth"],
                  "by_type": gr.nodes["by_type"]}
     dmom_built = pipe.ls.map.dmom is not None
     del pipe
     checks = probe.checks()
+    if cuda and not probe.body_checks:
+        fail(f"{kernel}: no call inside a conditional body was checked")
     prefix = 0
     if cuda:  # the same scans with eager ticks, bit for bit
         eager = LIOPipeline(cfg, device=device, graphed=False)
@@ -1074,7 +1212,9 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
     return {"traj": traj, "gt": np.array(gt), "n_scans": len(groups),
             "seconds": time.perf_counter() - t_run, "cuda": cuda,
             "scan_ms": scan_ms, "launches": launches, "syncs": syncs,
-            "torch_syncs": torch_syncs, "widths": probe.widths,
+            "torch_syncs": torch_syncs, "widths": widths,
+            "device_launches": device_ran, "implied_launches": implied,
+            "body_checks": probe.body_checks,
             "replays": replays, "captures": captures, "graph": graph,
             "graph_nodes": probe.graph_nodes, "prefix_equal": prefix,
             "smi": smi.collect() if smi is not None else [],
@@ -1122,32 +1262,43 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
     from better_fastlio2_tpu_torch.io import native
     from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
-    from better_fastlio2_tpu_torch.utils.device import host_syncs
+    from better_fastlio2_tpu_torch.utils.device import host_syncs, open_nodes
 
     W = window or WINDOW[name.split("_")[1]]
     real = kernels.fused_normal_eqs
-    spare: list[list] = []  # zeroed probe buffers, one per tick and width
-    probes: list[list] = []  # K1 (soa, params, G, mv) of each tick's pass 0
+    # zeroed probe buffers and a ran flag, one set per tick and width
+    spare: list[list] = []
+    probes: list[list] = []  # K1 (soa, params, G, mv, ran) of each tick
     seen: set[int] = set()  # widths already met in the current tick
+    passes: list[tuple[int, bool]] = []  # each scan's ESIKF passes, refresh
 
-    def spy(soa, params):
-        out = real(soa, params)
+    def spy(soa, params, **kw):
+        out = real(soa, params, **kw)
         if (warm_probe is not None and not warm_probe
                 and pipe.ls.map.dmom is None  # the warmup program
                 and bool(torch.any(out[0] != 0))):
             warm_probe.append((soa.clone(), params.clone(),
                                *(o.clone() for o in out)))
-        if pipe.graph is None or soa.shape[1] in seen:
-            return out  # not a steady tick's pass 0
+        capturing = torch.cuda.is_current_stream_capturing()
+        # a mesh step has no IF node: there its pass 0 is probed
+        if (pipe.graph is None or soa.shape[1] in seen
+                or (capturing and mesh is None
+                    and "esikf.pass" not in open_nodes())):
+            return out  # not a steady tick's first call of the width
         seen.add(soa.shape[1])
         call = (soa, params, *out)
-        if not torch.cuda.is_current_stream_capturing():  # eager warm-up
-            spare.append([torch.zeros_like(t) for t in call])
+        if not capturing:  # eager warm-up
+            spare.append([torch.zeros_like(t) for t in call]
+                         + [torch.zeros((), dtype=torch.bool,
+                                        device=soa.device)])
             return out
+        # inside an ESIKF pass body: a replay that runs it overwrites the
+        # buffers when its input has a live lane, and sets the flag
         bufs = spare.pop(0)
         live = torch.any(soa != 0)
         for b, t in zip(bufs, call):
             b.copy_(torch.where(live, t, b))
+        bufs[-1].logical_or_(live)
         probes.append(bufs)
         return out
 
@@ -1161,9 +1312,15 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         return tick(*args)
 
     pipe._tick = probed_tick
+    record = pipe._record
+
+    def recorded(v):
+        passes.append((int(v[29]), bool(v[30])))
+        return record(v)
+
+    pipe._record = recorded
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        getattr(kernels, k).launches = 0
+    reset_launches()
     gt, t_steady, n_steady = [], None, 0
     native.pack_quant_bulk.calls = 0
     measurement.fused_normal_eqs = spy
@@ -1198,13 +1355,18 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
     if graph is None or not n_steady:
         fail(f"{name}: the steady program was never captured and replayed")
     launches = {k: getattr(kernels, k).launches for k in KERNELS}
-    if launches["fused_hth"]:
+    k1_device = kernels.device_launches("fused_normal_eqs")
+    if launches["fused_hth"] or kernels.device_launches("fused_hth"):
         fail(f"{name}: the path launched fused_hth: {launches}")
-    # pass 0's K1 calls, refreshed by every replay, against the plain version
-    checks = [compare_k1(*p) for p in probes]
-    if spare or len(checks) != graph.steps * len({c["n"] for c in checks}):
-        fail(f"{name}: {len(checks)} K1 probes ({len(spare)} unused) in a "
-             f"graph of {graph.steps} ticks")
+    # the first K1 call of each width inside an ESIKF pass body of each
+    # tick, rewritten by every replay that ran it, against the plain
+    # version: the probes whose body ran
+    ran = [bool(p[-1]) for p in probes]
+    checks = [compare_k1(*p[:-1]) for p, r in zip(probes, ran) if r]
+    widths = {p[0].shape[1] for p in probes}
+    if spare or len(probes) != graph.steps * len(widths) or not checks:
+        fail(f"{name}: {len(probes)} K1 probes ({len(spare)} unused, "
+             f"{len(checks)} ran) in a graph of {graph.steps} ticks")
     by_width = {}
     for c in checks:
         b = by_width.setdefault(c["n"], {"calls": 0, "live": 0,
@@ -1213,9 +1375,9 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
         b["live"] += c["max_abs_G"] > 0
         b["max_err_over_tol"] = max(b["max_err_over_tol"],
                                     c["max_err_over_tol"])
-    if not all(b["live"] for b in by_width.values()):
-        fail(f"{name}: a K1 width never ran on live lanes in the graph: "
-             f"{by_width}")
+    if not any(b["live"] for b in by_width.values()):
+        fail(f"{name}: K1 never ran on live lanes in a pass body of the "
+             f"graph: {by_width}")
     traj = np.array(pipe.trajectory)
     if len(traj) != len(groups) - 1 or not np.all(np.isfinite(traj)):
         fail(f"{name}: trajectory has {len(traj)} rows or non-finite values")
@@ -1242,6 +1404,23 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
     nodes = graph.nodes
     capture_s = graph.capture_s
     coll = graph.captured_collectives
+    # the scans of replayed ticks: all but the warmup windows' and the
+    # capture window's first `steps`; their passes and refreshes imply K1
+    # launches (a padded tick of a flushed window runs its own few)
+    n_eager = len(groups) - 1 - n_steady - (W - steps)
+    rep = passes[n_eager:]
+    implied = sum(implied_launches("fused_normal_eqs", i, f)
+                  for i, f in rep)
+    pad_ticks = replays * steps - len(rep)
+    if mesh is not None:  # the select form: every pass and branch runs
+        if k1_device != k1_nodes * replays:
+            fail(f"{name}: the replays ran {k1_device} K1 launches, the "
+                 f"graph holds {k1_nodes} K1 nodes for {replays} replays")
+    elif not implied <= k1_device <= implied + pad_ticks * (
+            cfg.ikdtree.max_iteration + 1) * 2:
+        fail(f"{name}: the replays ran {k1_device} K1 launches (counted on "
+             f"the device), their scans' passes and refreshes imply "
+             f"{implied} (+ {pad_ticks} padded ticks)")
     probed = chain_device_ms(pipe, groups, W)
     # the pipeline's own graph, captured anew without the K1 probes
     del graph
@@ -1270,12 +1449,19 @@ def run_window_path(name: str, cfg, groups, gate_end: float, gate_ate: float,
             k: v / steps for k, v in coll.items()},
         "graph_kernel_nodes_per_step_unprobed": (
             pipe.graph.nodes["kernel_nodes"] / steps),
-        "k1_launches_per_steady_scan": k1_nodes / steps,
+        "graph_conditional_nodes_per_step": nodes["conditional"] / steps,
+        "graph_body_nodes_per_step": nodes["body_nodes"] / steps,
+        "passes_per_steady_scan_mean": float(np.mean([i for i, _ in rep])),
+        "refresh_fires_per_steady_scan_mean": float(np.mean(
+            [f for _, f in rep])),
+        "k1_launches_per_steady_scan": k1_device / (replays * steps),
+        "k1_launches_replayed_implied": implied,
         "k1_launches_python": launches["fused_normal_eqs"],
         # eager calls (the wrapper's count less the capture's calls, which
-        # ran nothing) plus the graph's K1 nodes at every counted replay
+        # ran nothing) plus the launches the replays ran, counted on the
+        # device (read before the timing replays below)
         "k1_launches_executed": (launches["fused_normal_eqs"] - k1_captured
-                                 + k1_nodes * replays),
+                                 + k1_device),
         "graph_replays": replays, "steady_scans": n_steady,
         "native_packed_rows": packed,
         "port_reads_per_steady_window": reads * W / n_steady,
@@ -1393,6 +1579,8 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
              f" ATE {ate:.4f} m (<= {gate_ate})")
     n_ds = [o["n_ds"] for o in res["outs"]]
     n_eff = [o["n_eff"] for o in res["outs"]]
+    iters = [o["iters"] for o in res["outs"]]
+    fires = [o["refreshed"] for o in res["outs"]]
     # scan_ms[i] is the (i + 1)-th scan through a step program
     first = program_warmup or WARMUP_SCANS
     steady = res["scan_ms"][first:]
@@ -1418,6 +1606,15 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
         "ms_per_scan_p90": float(np.percentile(steady, 90)),
         "launches_total": res["totals"][kernel],
         "launches_per_scan": float(np.mean(per_scan[1:])),
+        # the launches the replays ran, counted on the device, and what
+        # the replayed scans' passes and refreshes imply (equal)
+        "launches_replayed_device": res["device_launches"][kernel],
+        "launches_replayed_implied": res["implied_launches"][kernel],
+        "passes_per_scan_mean": float(np.mean(iters[1:])),
+        "refresh_fires_per_scan_mean": float(np.mean(fires[1:])),
+        "conditional_nodes_per_tick": (res["graph"] or {}).get(
+            "conditional_nodes"),
+        "checks_in_conditional_bodies": res["body_checks"],
         "graph_replays": len(replayed),
         "graph_captures": res["captures"],
         "graph": res["graph"],
@@ -1445,6 +1642,9 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
         w = slice(1, program_warmup)
         st = slice(program_warmup, None)
         out.update({
+            "passes_per_scan_warmup_mean": float(np.mean(iters[w])),
+            "passes_per_scan_steady_mean": float(np.mean(iters[st])),
+            "refresh_fires_per_scan_steady_mean": float(np.mean(fires[st])),
             "ms_per_scan_warmup_median": float(np.median(
                 res["scan_ms"][w])),
             "launches_per_scan_warmup": float(np.mean(per_scan[w])),
@@ -1596,8 +1796,7 @@ def phase_slam(groups, room_window_ms: float | None) -> tuple[dict, object]:
     lio.reset_map_from_world_points = counted_reset
     pipe._apply_correction = counted_correction
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        getattr(kernels, k).launches = 0
+    reset_launches()
     graph, t_steady, n_steady, n_torch = None, None, 0, 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1627,7 +1826,8 @@ def phase_slam(groups, room_window_ms: float | None) -> tuple[dict, object]:
     if graph is None or lio.graph is not graph:
         fail("slam: the steady program was not captured once and kept")
     launches = {k: getattr(kernels, k).launches for k in KERNELS}
-    if launches["fused_hth"]:
+    k1_device = kernels.device_launches("fused_normal_eqs")
+    if launches["fused_hth"] or kernels.device_launches("fused_hth"):
         fail(f"slam: the path launched fused_hth: {launches}")
     k1_nodes = graph.nodes["fused_normal_eqs"]
     k1_captured = graph.captured_launches["fused_normal_eqs"]
@@ -1674,9 +1874,12 @@ def phase_slam(groups, room_window_ms: float | None) -> tuple[dict, object]:
         "torch_syncs_per_steady_window": n_torch * W / n_steady,
         "sync_debug_mode_steady": "warn",
         "graph_replays": graph.replays,
-        "k1_launches_per_steady_scan": k1_nodes / steps,
+        "graph_conditional_nodes_per_step": (graph.nodes["conditional"]
+                                             / steps),
+        "k1_launches_per_steady_scan": k1_device / (graph.replays * steps),
+        # eager calls plus the launches the replays ran (on the device)
         "k1_launches_executed": (launches["fused_normal_eqs"] - k1_captured
-                                 + k1_nodes * graph.replays),
+                                 + k1_device),
         "corrections": len(corrections),
         "corrections_under_graph": sum(corrections),
         "map_resets": len(resets),
@@ -2173,6 +2376,8 @@ def phase_dynamic(name: str, groups, card: str, lio_kwargs=None,
     prefix = (dynamic_prefix(name, groups, traj, lio_kwargs, device)
               if cuda else 0)
     k2_checks = probe.checks()
+    if cuda and not probe.body_checks:
+        fail(f"{name}: no K2 call inside a conditional body was checked")
     n_ds = pipe.cfg.shapes.n_ds
     if len(k2_checks) != 1 + len(DYN_CHECK_SCANS) or any(
             c["n"] != n_ds for c in k2_checks):
@@ -3046,6 +3251,9 @@ def phase_cli(groups, card: str, native_rows: dict | None,
         launches = launches_ran()
         k1_checks = k1.checks()
         n_k1_checks = 1 + (len(CLI_K1_CHECK["keep_replays"]) if cuda else 0)
+        if cuda and k1.body_checks != n_k1_checks - 1:
+            fail(f"cli: {k1.body_checks} K1 calls checked inside a "
+                 "conditional body")
         updated = len(groups) - 1  # every scan but the IMU init's
         if summary["scans"] != len(groups):
             fail(f"cli: mapping ran {summary['scans']} of {len(groups)} "
@@ -3119,6 +3327,9 @@ def phase_cli(groups, card: str, native_rows: dict | None,
         relo_launches = launches_ran()
         k2_checks = k2.checks()
         n_k2_checks = 1 + (len(CLI_K2_CHECK["keep_replays"]) if cuda else 0)
+        if cuda and k2.body_checks != n_k2_checks - 1:
+            fail(f"cli: {k2.body_checks} K2 calls checked inside a "
+                 "conditional body")
         relo_rows = np.array([[float(v) for v in r.split()] for r in
                               _read_rows(os.path.join(relo_dir,
                                                       "relo_pose.txt"))])
@@ -3324,6 +3535,13 @@ def phase_spmd_room_window(groups, bench_room: dict, mesh) -> dict:
     if res["graph_nccl_kernel_nodes_per_step"] + res["graph_nodes_by_type"].get(
             "memcpy", 0) == 0 and not any(res["collectives_per_step"].values()):
         fail("spmd_room_window: the captured graph ran no collective")
+    # the mesh step keeps its selects; the same step without a mesh
+    # captures its gates as IF nodes
+    if (res["graph_conditional_nodes_per_step"]
+            or not ref["graph_conditional_nodes_per_step"]):
+        fail(f"spmd_room_window: {res['graph_conditional_nodes_per_step']} "
+             "conditional nodes a tick with the mesh, "
+             f"{ref['graph_conditional_nodes_per_step']} without")
     # the pipeline of this phase is gone; a fresh one for the overrides
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
 
@@ -3354,6 +3572,8 @@ def phase_spmd_room_window(groups, bench_room: dict, mesh) -> dict:
             "graph_nccl_kernel_nodes_per_step"],
         "graph_nodes_by_type": res["graph_nodes_by_type"],
         "graph_nodes_by_type_non_mesh": ref["graph_nodes_by_type"],
+        "graph_conditional_nodes_per_step_non_mesh": ref[
+            "graph_conditional_nodes_per_step"],
         "collectives_per_step": res["collectives_per_step"],
         "torch_syncs_per_steady_window": res[
             "torch_syncs_per_steady_window"],
@@ -3554,6 +3774,7 @@ def main() -> None:
         phase_apps(pipe, sgroups, card, keep=keep)
         return
     floor_us = launch_floor_us()
+    if_node_cost(floor_us)
     k1 = phase_kernels(floor_us)
     k2 = phase_k2(floor_us)
     t0 = time.perf_counter()
@@ -3644,6 +3865,10 @@ def main() -> None:
         # the captured graph (the wrapper's count sees only the capture)
         "launches": sum(k1_by_phase.values()),
         "launches_by_phase": k1_by_phase,
+        # calls checked that ran inside a CUDA-graph conditional body
+        "checks_in_conditional_bodies": sum(
+            p["checks_in_conditional_bodies"]
+            for p in (main_out, bench_room, bench_outdoor)),
         "max_abs_err": k1_err,
         "ms": k1["ms"],
         "device_us": k1["device_us"],
@@ -3663,6 +3888,8 @@ def main() -> None:
         "replaces": "better_fastlio2_tpu/ops/pallas_kernels.py:262",
         "launches": sum(k2_by_phase.values()),
         "launches_by_phase": k2_by_phase,
+        "checks_in_conditional_bodies": sum(
+            p["checks_in_conditional_bodies"] for p in (row, row_ext)),
         "max_abs_err": k2_err,
         "ms": k2_t["ms"],
         "device_us": k2_t["device_us"],

@@ -63,7 +63,21 @@ columns) and bench programs; a pipelined steady scan makes no sync under
 sync debug mode "error"; a state replaced between scans reaches the
 warmup graph and, after the handoff, the steady graph; a failed capture
 raises.  Kernel launches are counted as they ran: the wrappers' counts
-less the calls made while capturing, plus the graphs' replayed nodes.
+less the calls made while capturing, plus the launches the replays ran,
+counted on the device (ops/kernels.device_launches).
+
+Conditional nodes (slice 10): in every non-mesh captured program the
+ESIKF passes after the first, the refresh and its re-solve, the
+compaction, the width of the solve and the row form's re-association are
+CUDA-graph IF nodes.  The replays still equal the eager ticks bit for
+bit (the per-scan programs above, the bench configuration's outdoor
+width with a compacted buffer that some scans overflow, the window
+graph); the graph's node counts include its bodies (K1 / K2 nodes inside
+them equal the calls at capture); the K1 / K2 launches the replays ran,
+counted on the device, are exactly what each replayed scan's passes,
+refresh and width imply (K1 once a pass plus once for a refresh's
+re-solve, one width a solve; K2 once a pass); a nested IF node runs its
+body only when both predicates hold.
 """
 
 import numpy as np
@@ -88,9 +102,9 @@ from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
 def _ran(name: str) -> int:
     """Launches of kernel `name` that ran so far: its wrapper's count less
     the calls made while a graph captured (they launched nothing then),
-    plus the launches the graphs' replays ran."""
+    plus the launches the graphs' replays ran (counted on the device)."""
     return (getattr(tk, name).launches - graphs.captured[name]
-            + graphs.replayed[name])
+            + tk.device_launches(name))
 
 
 @pytest.fixture
@@ -567,10 +581,13 @@ def test_cuda_graph_window_matches_eager(cuda):
     assert pg.graph.steps == 2
     assert pg.graph.nodes["kernel_nodes"] > 0
     # two ticks of max_iteration + 1 = 4 passes, a solve and a re-solve;
-    # the graph holds one K1 kernel node for each K1 call of the capture
+    # the graph holds one K1 kernel node for each K1 call of the capture,
+    # inside the conditional bodies (passes 1-3, the refresh, the width)
     k1 = pg.graph.captured_launches["fused_normal_eqs"]
     assert k1 >= 2 * 4 * 2
     assert pg.graph.nodes["fused_normal_eqs"] == k1
+    assert pg.graph.nodes["conditional"] >= 2 * 3
+    assert pg.graph.nodes["body_nodes"] > 0
     # one replay for the capture window's second half, two for each later
     # window (the flushed partial one too)
     n_steady = len(groups) - 1 - 8
@@ -1164,8 +1181,11 @@ def _per_scan_cfg(program):
     `row` / `row_ext` the row path with the reference re-association
     (6 / 12 columns), `bench` the bench configuration (a 6-scan 5-NN
     warmup program, then the steady program)."""
-    if program == "bench":
-        return _bench_cfg()
+    if program.startswith("bench"):
+        cfg = _bench_cfg()
+        if program == "bench_narrow":
+            cfg.shapes.solve_compact = 1400
+        return cfg
     cfg = _cfg()
     if program != "main":
         cfg.ikdtree.single_association = False
@@ -1173,40 +1193,63 @@ def _per_scan_cfg(program):
     return cfg
 
 
-def _scan_run(pipe, groups):
+def _scan_run(pipe, groups, replayed=None):
+    """The trajectory; with `replayed` (a list), each updated scan's
+    (out, whether it was a replay of an earlier capture) appended."""
     for g in groups:
-        pipe.process_scan(*_args(g))
+        g0 = pipe.graph
+        r0 = g0.replays if g0 is not None else 0
+        out = pipe.process_scan(*_args(g))
+        if out is not None and replayed is not None:
+            replayed.append((out, pipe.graph is g0 and g0 is not None
+                             and g0.replays > r0))
     return np.array(pipe.trajectory)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("program", ["main", "row", "row_ext", "bench"])
+@pytest.mark.parametrize("program", ["main", "row", "row_ext", "bench",
+                                     "bench_narrow"])
 def test_cuda_per_scan_graph_matches_eager_ticks(cuda, program):
     """Per scan, each program's one-tick graph replays bit-identically to
     the same ticks run eagerly (graphed=False), across the bench
     configuration's warmup->steady handoff; the warmup graph is released
     at the handoff and the steady graph captured at the first steady
     scan; every scan after a program's first is one replay; the graph's
-    K1 / K2 kernel nodes equal the kernels' calls at capture."""
-    groups = _bench_groups() if program == "bench" else _groups()
-    pg, pe = (LIOPipeline(_per_scan_cfg(program), graphed=g)
-              for g in (True, False))
-    r0 = graphs.replayed.copy()
-    tg, te = _scan_run(pg, groups), _scan_run(pe, groups)
+    K1 / K2 kernel nodes, its conditional bodies' included, equal the
+    kernels' calls at capture.  The launches the replays ran, counted on
+    the device, are what each replayed scan's passes and refresh imply.
+    `bench_narrow`: the bench configuration with a compacted width that
+    some scans overflow (the solve's two width nodes both run)."""
+    groups = _bench_groups() if program.startswith("bench") else _groups()
+    cfg = _per_scan_cfg(program)
+    pg, pe = (LIOPipeline(cfg, graphed=g) for g in (True, False))
+    tk.reset_device_launches()
+    reps = []
+    tg, te = _scan_run(pg, groups, reps), _scan_run(pe, groups)
     assert pe.graph is None and pg.graph is not None
     assert pg._graph_of == "steady" and pg.ls is pg.graph.ls
     np.testing.assert_array_equal(tg, te)
     for dst, src in graphs._leaf_pairs(pg.ls, pe.ls):
         assert torch.equal(dst, src)
-    warm = 6 if program == "bench" else 0
+    warm = 6 if program.startswith("bench") else 0
     n = len(groups) - 1  # scans through a step program
     assert pg.graph.replays == n - warm - 1
     kernel = "fused_hth" if program.startswith("row") else "fused_normal_eqs"
     nodes = pg.graph.nodes[kernel]
     assert nodes == pg.graph.captured_launches[kernel] > 0
-    assert graphs.replayed[kernel] - r0[kernel] >= nodes * pg.graph.replays
+    assert pg.graph.nodes["conditional"] >= cfg.ikdtree.max_iteration
     other = "fused_normal_eqs" if kernel == "fused_hth" else "fused_hth"
     assert pg.graph.nodes[other] == 0
+    # the launches the replays ran: K1 a pass plus a refresh's re-solve,
+    # K2 a pass
+    rep = [o for o, r in reps if r]
+    assert len(rep) == n - (2 if warm else 1)
+    implied = sum(o["iters"] + (kernel == "fused_normal_eqs")
+                  * o["refreshed"] for o in rep)
+    assert tk.device_launches(kernel) == implied
+    assert tk.device_launches(other) == 0
+    assert implied < len(rep) * (cfg.ikdtree.max_iteration + 1) * (
+        2 if kernel == "fused_normal_eqs" else 1)
     err = np.linalg.norm(tg[:, :3] - (np.array(
         [g["gt_pos"] for g in groups[1:]]) - [0, 0, 1.5]), axis=1)
     assert np.sqrt(np.mean(err ** 2)) < 0.10
@@ -1257,6 +1300,7 @@ def test_cuda_per_scan_graph_takes_replaced_state(cuda):
         pe.process_scan(*_args(g))
     graph = pg_.graph
     assert pg_._graph_of == "steady" and graph.replays > 0
+    assert graph.nodes["conditional"] > 0
     pts = pg_.ls.map.points.reshape(-1, 3)
     pts = pts[pts[:, 0] < 1e8][:3000].cpu().numpy() + [1.0, 0.0, 0.0]
     for p in (pg_, pe):
@@ -1294,3 +1338,48 @@ def test_cuda_per_scan_failed_capture_raises(cuda):
     with pytest.raises(tdev.HostReadInCapture):
         p.process_scan(*_args(groups[1]))
     assert p.graph is None
+
+
+@pytest.mark.cuda
+def test_cuda_nested_if_nodes_run_only_when_taken(cuda):
+    """utils.device.cond inside a CUDA graph capture: IF nodes, nested two
+    deep, with K1 inside the inner body.  Every replay for the four
+    predicate pairs runs the inner body (K1, its device counter, the copy
+    into the result) only when both hold, and gives the select form's
+    bits; the captured graph holds two conditional nodes and K1's kernel
+    node inside the inner body."""
+    from better_fastlio2_tpu_torch.utils import device as tdev
+
+    soa, params = (t.to(cuda) for t in _soa(4096, 5))
+    G0 = torch.full((8, 8), -1.0, device=cuda)
+    outer = torch.zeros((), dtype=torch.bool, device=cuda)
+    inner = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def step():
+        def body(g):
+            return tdev.cond(inner, lambda h: tk.fused_normal_eqs(soa,
+                                                                  params)[0],
+                             g * 2.0)
+        return tdev.cond(outer, body, G0)
+
+    step()  # the launcher is built, the counters made
+    tk.launch_counter("fused_normal_eqs", cuda)
+    torch.cuda.synchronize()
+    tdev.bodies.clear()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    pool = torch.cuda.MemPool()  # the bodies' memory, kept with the graph
+    with tdev.step_capture(pool, cuda), torch.cuda.graph(g):
+        out = step()
+    g.instantiate()
+    nodes = graphs._node_counts(g, tdev.bodies)
+    tdev.bodies.clear()
+    assert nodes["conditional"] == 2 and nodes["fused_normal_eqs"] == 1
+    G_k = tk.fused_normal_eqs(soa, params)[0]
+    tk.reset_device_launches()
+    for o, i in ((False, False), (False, True), (True, False), (True, True)):
+        outer.fill_(o)
+        inner.fill_(i)
+        g.replay()
+        want = (G_k if i else G0 * 2.0) if o else G0
+        assert torch.equal(out, want)
+    assert tk.device_launches("fused_normal_eqs") == 1

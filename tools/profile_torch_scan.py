@@ -23,7 +23,12 @@ each stage: the top-level fields.  Then as users run it, each scan a
 replay of its program's one-tick CUDA graph: the same fields under
 `replay` (wall, device time, busy share, launches and syncs per scan;
 the replayed ticks carry no lio.* spans), with `graph`, the steady
-graph's nodes, kernel nodes, K1/K2 nodes and capture time.
+graph's nodes, kernel nodes, K1/K2 nodes, conditional (IF) nodes and the
+nodes inside their bodies, and capture time.  In the replays the IF
+nodes skip the ESIKF passes, refreshes and branches their device
+predicates rule out; both modes report the passes and refresh fires a
+scan that the update ran (the info vector), the eager ticks' equal to
+the replays'.
 
 --window W (> 1, bench configurations only, with --scans given) drives
 the pipeline as bench.py does (slice 4: pipelined, window W, quantized, unroll min(W,
@@ -57,6 +62,9 @@ under `warmup`, for the warmup program's:
                           device kernel per call: calls per scan and
                           device microseconds per call
   top_kernels             the 15 largest device-time entries by name
+  passes_per_scan         the ESIKF passes the update ran, mean a scan
+                          (per-scan mode; the IF nodes' pass predicate)
+  refresh_fires_per_scan  the scans whose lazy refresh fired, a share
   syncs_per_scan          over SYNC_SCANS further scans (windows: two
                           windows), unprofiled: `port_reads`, the
                           device->host reads the port makes through
@@ -130,10 +138,12 @@ def profile_window(feed, groups) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for g in groups:
-            feed(g)
+        outs = [feed(g) for g in groups]
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    # per scan the update's passes and lazy refresh (LIOPipeline._record);
+    # a window's feed returns no record a scan
+    recs = [o for o in outs if isinstance(o, dict) and "iters" in o]
     n = len(groups)
     events = prof.events()
     spans = [e for e in events if e.name.startswith("lio.")]
@@ -175,6 +185,10 @@ def profile_window(feed, groups) -> dict:
                                              if calls else None)}
     return {
         "scans": n,
+        "passes_per_scan": (sum(r["iters"] for r in recs) / len(recs)
+                            if recs else None),
+        "refresh_fires_per_scan": (sum(r["refreshed"] for r in recs)
+                                   / len(recs) if recs else None),
         "wall_ms_per_scan": 1e3 * wall_s / n,
         "device_busy_share": busy_us / (1e6 * wall_s),
         "device_ms_per_scan": dev_us / 1e3 / n,
