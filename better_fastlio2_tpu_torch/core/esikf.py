@@ -25,6 +25,7 @@ are plain `@` here.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, NamedTuple
 
@@ -34,6 +35,7 @@ from ..parallel import collectives
 from ..utils import s2 as s2m
 from ..utils import so3
 from ..utils.device import cond
+from ..utils.trace import span
 from ..utils.tree import tree_where
 from .state import ERR_DIM, NOISE_DIM, State, boxminus, boxplus, oplus_flat
 
@@ -387,30 +389,39 @@ def update_iterated(
     Returns (x_post, P_post, aux, info) with info = {iters, t, n_eff},
     device tensors (`iters` the passes the reference's loop runs).
     """
-    m = measure_fn(x_prop, True, aux0)
-    if m.gram is not None:
-        return _update_gram(x_prop, P_prop, measure_fn, m, max_iter, R,
-                            limit, n_cols, psum)
-    return _update_rows(x_prop, P_prop, measure_fn, m, max_iter, R, limit,
-                        n_cols, psum)
+    with contextlib.ExitStack() as pass0:
+        # pass 0's lio.update.pass span holds its measure (the association)
+        pass0.enter_context(span("lio.update.pass"))
+        m = measure_fn(x_prop, True, aux0)
+        path = _update_gram if m.gram is not None else _update_rows
+        return path(x_prop, P_prop, measure_fn, m, max_iter, R, limit,
+                    n_cols, psum, pass0)
 
 
-def _run_passes(one_pass, max_iter: int, psum=None):
+def _run_passes(one_pass, max_iter: int, psum=None, pass0=None):
     """The reference's lax.while_loop (:531) over one_pass(i, st) -> st,
     st = (carry, iters, done): pass 0 unconditionally, then pass i under
     cond(~done, ...) for i = 1..max_iter.  `done` only ever turns on, so
     the chain equals the loop.  In a captured non-mesh step the first
     cond clones pass 0's state into tensors made before its node and
-    every later pass writes into those with copy_."""
+    every later pass writes into those with copy_.  Each pass is a
+    lio.update.pass span (utils/trace.py); pass 0's, opened by the caller
+    around its measure, is `pass0` (an ExitStack) and closes here."""
+    def traced(i, st):
+        with span("lio.update.pass"):
+            return one_pass(i, st)
+
     st = one_pass(0, None)
+    if pass0 is not None:
+        pass0.close()
     for i in range(1, max_iter + 1):
-        st = cond(~st[2], functools.partial(one_pass, i), st, mesh=psum,
+        st = cond(~st[2], functools.partial(traced, i), st, mesh=psum,
                   name="esikf.pass", inplace=i > 1)
     return st
 
 
 def _update_gram(x_prop, P_prop, measure_fn, m0, max_iter: int, R: float,
-                 limit: float, K: int, psum=None):
+                 limit: float, K: int, psum=None, pass0=None):
     """The Gram path of update_iterated: pass i of the reference's while
     loop is pass i here (the pass index is static)."""
     dtype, dev = P_prop.dtype, P_prop.device
@@ -440,7 +451,7 @@ def _update_gram(x_prop, P_prop, measure_fn, m0, max_iter: int, R: float,
                  n_valid.to(dtype), *blocks)
         return carry, iters + 1, done
 
-    carry, iters, _ = _run_passes(one_pass, max_iter, psum)
+    carry, iters, _ = _run_passes(one_pass, max_iter, psum, pass0)
     x, t, _, aux, P_inv12, HTH, dx_, n_eff, A3, A6, S2b = carry
     # P_last = T P_prop T^T rebuilt from the last executed pass's blocks
     Pl = _rows_T(P_prop, A3, A6, S2b)
@@ -454,7 +465,7 @@ _SOLVE_COLS = 12
 
 
 def _update_rows(x_prop, P_prop, measure_fn, m0, max_iter: int, R: float,
-                 limit: float, K: int, psum=None):
+                 limit: float, K: int, psum=None, pass0=None):
     """The row path of update_iterated, its passes run as _update_gram's:
     pass i of the reference's while loop (:531) is pass i here."""
     dtype, dev = P_prop.dtype, P_prop.device
@@ -498,7 +509,7 @@ def _update_rows(x_prop, P_prop, measure_fn, m0, max_iter: int, R: float,
                  n_valid)
         return carry, iters + 1, done
 
-    carry, iters, _ = _run_passes(one_pass, max_iter, psum)
+    carry, iters, _ = _run_passes(one_pass, max_iter, psum, pass0)
     x, t, _, aux, P, P_inv12, HTH, dx_, n_eff = carry
     P_post = _joseph(x, x_prop, P, P_inv12, HTH, dx_, R, K)
     return x, P_post, aux, {"iters": iters, "t": t, "n_eff": n_eff}

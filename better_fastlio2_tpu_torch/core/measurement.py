@@ -37,7 +37,6 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..map import voxel_hash
 from ..ops.kernels import (_OK, _VAL, SOA_CH, fused_hth, fused_normal_eqs,
@@ -45,6 +44,7 @@ from ..ops.kernels import (_OK, _VAL, SOA_CH, fused_hth, fused_normal_eqs,
 from ..parallel import collectives
 from ..utils import so3
 from ..utils.device import cond, conditional, if_node, nonzero_static
+from ..utils.trace import count, span
 from .esikf import MeasurementOut
 from .state import State
 
@@ -475,7 +475,7 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
 
         def search(_):
             # a fresh aux: nothing of an earlier pass's association leaks
-            with record_function("lio.associate"):
+            with span("lio.associate"):
                 n, d, ok = search_rows(p_world, pts_valid)
             return MeasureAux(normal=n, d=d, fit_ok=ok, searched=True,
                               assoc_ijk=ijk_now, refreshed=false)
@@ -489,7 +489,7 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
             fire = converged & ~aux.refreshed & (n_need * 20 > n_val_scan)
 
             def refresh(a):
-                with record_function("lio.refresh"):
+                with span("lio.refresh"):
                     return _budgeted_refresh(
                         a, p_world, ijk_now, pts_valid, search_rows,
                         refresh_budget, N)._replace(
@@ -581,6 +581,7 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
         if not B:
             return fused_normal_eqs(aux.soa, params)
         if not conditional(aux.use_c, psum):
+            count("measure.width")  # the one of the two IF bodies taken
             G_c, mv_c = fused_normal_eqs(aux.soa_c, params)
             G_f, mv_f = fused_normal_eqs(aux.soa, params)
             return (torch.where(aux.use_c, G_c, G_f),
@@ -623,7 +624,7 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
 
     def measure(s: State, converged, aux: MeasureAux) -> MeasurementOut:
         if not aux.searched:  # pass 0, the association pass
-            with record_function("lio.associate"):
+            with span("lio.associate"):
                 aux = build_aux(s, aux)
         # the pose goes to the kernel as f32 even in f64 runs (the
         # reference rounds R and t there too)
@@ -639,7 +640,7 @@ def _make_fused_measure(m, pts_body, pts_valid, search_rows,
                     & (n_moved * 20.0 > n_val_scan))
 
             def refresh_and_solve(op):
-                with record_function("lio.refresh"):
+                with span("lio.refresh"):
                     a = refresh(s, op[0])
                     # re-solve over the refreshed association
                     return (a, *solve(a, params))

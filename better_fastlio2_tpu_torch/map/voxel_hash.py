@@ -61,6 +61,7 @@ import torch
 
 from ..parallel import collectives
 from ..utils.device import nonzero_static
+from ..utils.trace import active as trace_active
 
 __all__ = ["VoxelHashMap", "make_map", "insert", "insert_dense_moments",
            "build_dense_moments", "knn", "knn_sortjoin", "crop_outside_box",
@@ -294,10 +295,18 @@ def _claim_slots(key_arr: torch.Tensor, h: torch.Tensor, key: torch.Tensor,
     fixed max_probe rounds run.  Each round resolves an unresolved lane
     or advances its probe, and a lane drops out at max_probe, so
     max_probe rounds reach the while_loop's end; a round with nothing
-    unresolved adds zero to key 0 and changes nothing."""
+    unresolved adds zero to key 0 and changes nothing.
+
+    While the step is traced (utils/trace.py) it counts the lanes that
+    claimed a slot (`map.claims`) and the rounds in which some lane was
+    unresolved (`map.probe_rounds`: a lane resolved in round r was
+    unresolved in r + 1 rounds, one that ran out in max_probe)."""
     C = key_arr.shape[0]
     hmask = C - 1
     probe = torch.zeros_like(idx)
+    tr = trace_active()
+    if tr is not None:
+        claimed, unresolved0 = torch.zeros_like(unresolved), unresolved
     for _ in range(max_probe):
         cand = (h + probe) & hmask
         kcand = key_arr[cand]
@@ -322,6 +331,12 @@ def _claim_slots(key_arr: torch.Tensor, h: torch.Tensor, key: torch.Tensor,
         unresolved = unresolved & ~won
         probe = torch.where(unresolved, probe + 1, probe)
         unresolved = unresolved & (probe < max_probe)
+        if tr is not None:
+            claimed = claimed | won
+    if tr is not None:
+        tr.count("map.claims", torch.sum(claimed))
+        tr.count("map.probe_rounds", torch.max(torch.where(
+            unresolved0, torch.clamp(probe + 1, max=max_probe), 0)))
     return slot
 
 

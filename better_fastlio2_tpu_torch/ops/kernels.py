@@ -30,9 +30,11 @@ thread-block cluster per call; on a CPU tensor they run the plain versions
 `fused_normal_eqs_reference` and `fused_hth_reference`.  Nothing else
 falls back.  Each wrapper counts its calls on the host (`launches`) and,
 while the CUDA graph of a step captures (utils.device.step_capture), also
-adds one to a device-side int64 counter beside the launch
-(`launch_counter`): a replay then adds the launches it ran, and a
-conditional body that does not run adds nothing.  `_neq_rows` and `_hth_rows` build the rows the kernels reduce
+adds one to a device-side int64 counter beside the launch: a replay then
+adds the launches it ran, and a conditional body that does not run adds
+nothing.  The counters are named (`device_counter`): a kernel's launches
+under its name, and the step trace's counts (utils/trace.py: IF bodies
+taken, map claims, probe rounds) under theirs.  `_neq_rows` and `_hth_rows` build the rows the kernels reduce
 without materialising them; chip_smoke.py times a matrix product on them
 as each kernel's library yardstick.
 """
@@ -45,8 +47,9 @@ import torch
 
 from ..utils.device import in_step_capture
 
-__all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs", "launch_counter",
-           "device_launches", "reset_device_launches",
+__all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs", "device_counter",
+           "device_counters", "device_count", "device_launches",
+           "reset_device_launches",
            "fused_normal_eqs_reference", "fused_normal_eqs_tolerance",
            "fused_normal_eqs_handles",
            "fused_hth", "fused_hth_reference", "fused_hth_tolerance",
@@ -179,29 +182,67 @@ def _launcher(name: str):
     return fn
 
 
-_counters: dict[tuple[str, int], torch.Tensor] = {}
+_counters: dict[tuple[str, str], torch.Tensor] = {}
 
 
-def launch_counter(name: str, dev: torch.device) -> torch.Tensor:
-    """The () int64 device counter of kernel `name`'s launches made under a
-    CUDA graph capture on `dev` (made zero at first use, which must come
-    before the capture: pipeline/graphs.StepGraph makes every kernel's
-    before it captures)."""
-    key = (name, dev.index if dev.index is not None
-           else torch.cuda.current_device())
+def _counter_key(name: str, dev) -> tuple[str, str]:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return name, str(dev)
+
+
+def _new_counters(n: int, dev: str) -> torch.Tensor:
+    """n zeroed int64 counters on `dev`, made outside any capture (a
+    tensor made inside one would be the graph's, zeroed every replay)."""
+    if dev.startswith("cuda") and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"no device counter on {dev} made before the "
+                           "capture")
+    return torch.zeros(n, dtype=torch.int64, device=dev)
+
+
+def device_counter(name: str, dev) -> torch.Tensor:
+    """The () int64 counter `name` on `dev`: a kernel's launches made under
+    the CUDA graph capture of a step, or one of the step trace's counts
+    (made zero at first use, which must come before a capture that adds
+    to it: pipeline/graphs.StepGraph makes every kernel's, the trace its
+    own, before they capture)."""
+    key = _counter_key(name, dev)
     c = _counters.get(key)
     if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{name}: no launch counter on {dev} made "
-                               "before the capture")
-        c = _counters[key] = torch.zeros((), dtype=torch.int64, device=dev)
+        c = _counters[key] = _new_counters(1, key[1])[0]
     return c
+
+
+def device_counters(names, dev) -> torch.Tensor:
+    """The counters `names` on `dev` as one (len(names),) int64 tensor
+    whose entries are the named counters (device_counter gives the same
+    memory), made together at first use so that one kernel reads them
+    all; raises if some of them were made apart."""
+    keys = [_counter_key(n, dev) for n in names]
+    have = [_counters.get(k) for k in keys]
+    if all(c is None for c in have):
+        buf = _new_counters(len(keys), keys[0][1])
+        for k, c in zip(keys, buf):
+            _counters[k] = c
+        return buf
+    if (any(c is None for c in have)
+            or any(b.data_ptr() - a.data_ptr() != a.element_size()
+                   for a, b in zip(have, have[1:]))):
+        raise RuntimeError(f"counters {list(names)} on {keys[0][1]} were "
+                           "not made together")
+    return have[0].as_strided((len(keys),), (1,))
+
+
+def device_count(name: str) -> int:
+    """The counter `name` summed over devices: one host read of each."""
+    return sum(int(c) for (k, _), c in _counters.items() if k == name)
 
 
 def device_launches(name: str) -> int:
     """Kernel `name`'s launches that captured graphs ran since the last
-    reset, summed over devices: one host read of each counter."""
-    return sum(int(c) for (k, _), c in _counters.items() if k == name)
+    reset, summed over devices (its counter's device_count)."""
+    return device_count(name)
 
 
 def reset_device_launches() -> None:
@@ -216,7 +257,7 @@ def _count(wrapper, dev: torch.device) -> None:
     (inside the conditional body the launch is in, if any)."""
     wrapper.launches += 1
     if in_step_capture():
-        launch_counter(wrapper.__name__, dev).add_(1)
+        device_counter(wrapper.__name__, dev).add_(1)
 
 
 def _launch(fn, dev: torch.device, *args) -> int:
@@ -238,7 +279,7 @@ def fused_normal_eqs(soa: torch.Tensor, params: torch.Tensor,
 
     CUDA tensors: one launch of the CUDA kernel on the current stream
     (counted in `fused_normal_eqs.launches`, and under a capture in its
-    launch_counter), G and n_moved views of one (9, 8) buffer (G its first
+    device_counter), G and n_moved views of one (9, 8) buffer (G its first
     64 floats, n_moved the 65th): `out` when given (a contiguous (9, 8)
     f32 tensor the kernel overwrites), else a fresh one; soa must be a
     contiguous (16, N) f32 tensor and params a contiguous (16,) f32

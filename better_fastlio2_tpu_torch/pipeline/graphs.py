@@ -36,7 +36,7 @@ captured as CUDA-graph conditional (IF) nodes (utils.device.cond): a
 replay runs only the passes and branches its device predicates pick, as
 the reference's compiled While and Conditional ops do.  A mesh step keeps
 their select form.  The hand-written kernels count the launches a replay
-runs on the device (ops/kernels.launch_counter, bumped beside each launch
+runs on the device (ops/kernels.device_counter, bumped beside each launch
 inside the graph, so a skipped body counts nothing).
 
 Capture failures raise; nothing falls back to eager execution.  The
@@ -163,15 +163,16 @@ def _node_counts(graph: torch.cuda.CUDAGraph, bodies=()) -> dict:
     utils.device.bodies) included: all nodes, by type, kernel nodes,
     conditional nodes (`conditional`), the nodes inside bodies
     (`body_nodes`), K1's and K2's kernel nodes (`fused_normal_eqs`,
-    `fused_hth`: those whose function or kernel handle is the kernel's)
-    and NCCL's (`nccl`: kernel nodes whose function name starts with
-    "nccl", the collectives a mesh step captured; NCCL may also add
-    memcpy nodes, counted under their type)."""
+    `fused_hth`: those whose function or kernel handle is the kernel's),
+    NCCL's (`nccl`: kernel nodes whose function name starts with "nccl",
+    the collectives a mesh step captured; NCCL may also add memcpy nodes,
+    counted under their type) and the step trace's (`trace`: the stamp
+    and readout kernels of csrc/trace_stamp.cu, none unless traced)."""
     handles = {k: getattr(kernels, f"{k}_handles")() for k in KERNELS}
     cuda = ctypes.CDLL("libcuda.so.1")
     top = _graph_nodes(cuda, graph.raw_cuda_graph())
     inner = [n for b in bodies for n in _graph_nodes(cuda, b)]
-    n_nccl = 0
+    n_nccl = n_trace = 0
     n_k = dict.fromkeys(KERNELS, 0)
     by_type: dict[str, int] = {}
     for node in top + inner:
@@ -190,8 +191,12 @@ def _node_counts(graph: torch.cuda.CUDAGraph, bodies=()) -> dict:
         mine = [k for k, h in handles.items() if {p.func, p.kern} & h]
         if mine:
             n_k[mine[0]] += 1
-        elif _kernel_name(cuda, p).startswith("nccl"):
+            continue
+        name = _kernel_name(cuda, p)
+        if name.startswith("nccl"):
             n_nccl += 1
+        elif "trace_stamp" in name or "trace_readout" in name:
+            n_trace += 1
     if by_type.get("conditional", 0) != len(bodies):
         raise RuntimeError(f"{by_type.get('conditional', 0)} conditional "
                            f"nodes for {len(bodies)} bodies captured")
@@ -199,7 +204,7 @@ def _node_counts(graph: torch.cuda.CUDAGraph, bodies=()) -> dict:
             "kernel_nodes": by_type.get("kernel", 0),
             "conditional": by_type.get("conditional", 0),
             "body_nodes": len(inner), **n_k, "nccl": n_nccl,
-            "by_type": by_type}
+            "trace": n_trace, "by_type": by_type}
 
 
 class StepGraph:
@@ -249,7 +254,7 @@ class StepGraph:
         cur.wait_stream(self.stream)
         torch.cuda.synchronize()
         for k in KERNELS:  # the device counters exist before the capture
-            kernels.launch_counter(k, self.acc_norm.device)
+            kernels.device_counter(k, self.acc_norm.device)
         devmod.bodies.clear()
         # the conditional bodies' memory: a pool of the graph's own, kept
         # as long as the graph

@@ -43,11 +43,12 @@ from __future__ import annotations
 
 import functools
 import sys
+import time
+from collections import deque
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import LIOConfig, derive_map_dense_log2
 from ..core import esikf, imu, measurement
@@ -60,6 +61,8 @@ from ..parallel import collectives
 from ..utils import so3
 from ..utils.device import (readback_async, readback_wait, resolve_device,
                             to_host)
+from ..utils.trace import Tracer, span, tracing
+from ..utils.trace import active as trace_active
 from ..utils.tree import tree_where
 from . import graphs
 
@@ -68,6 +71,7 @@ __all__ = ["LIOState", "LIOPipeline", "make_step_fn", "check_config",
            "decode_quant", "make_window_step_fn"]
 
 MOV_THRESHOLD = 1.5  # laserMapping.cpp MOV_THRESHOLD
+TRACE_RING = 4096  # scan records a traced pipeline keeps (LIOPipeline.traces)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -278,10 +282,9 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
                 assoc_cells=sh.assoc_cells,
                 psum=mesh,
             )
-            with record_function("lio.update"):
-                x_u, P_u, aux_u, info_u = esikf.update_iterated(
-                    x_prop, P_prop, measure, aux0,
-                    max_iter=kd.max_iteration, n_cols=n_cols, psum=mesh)
+            x_u, P_u, aux_u, info_u = esikf.update_iterated(
+                x_prop, P_prop, measure, aux0,
+                max_iter=kd.max_iteration, n_cols=n_cols, psum=mesh)
             passes = torch.stack([info_u["iters"].to(torch.float32),
                                   aux_u.refreshed.to(torch.float32)])
             return x_u, P_u, info_u["n_eff"].to(dtype), passes
@@ -294,13 +297,46 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
 
     def step(ls: LIOState, pts, pt_t, pt_valid, imu_b: imu.ImuBatch,
              last_end_rel, scan_end_t, acc_norm, scan_valid=None):
+        with span("lio.scan"):
+            ls, x_prop, x_post, n_valid, n_eff, passes = scan(
+                ls, pts, pt_t, pt_valid, imu_b, last_end_rel, scan_end_t,
+                acc_norm, scan_valid)
+        # every per-scan output in ONE flat f32 vector (one readback):
+        #   [0:3] post pos  [3:7] post quat  [7] n_valid  [8] map voxels
+        #   [9:12] prop pos  [12:16] prop quat  [16:19] vel  [19:22] bg
+        #   [22:25] ba  [25:28] grav  [28] n_eff  [29] ESIKF passes run
+        #   [30] lazy refresh fired (0/1)  [31] pad
+        # and, while the step is traced, the scan's spans and counts after
+        # them (utils/trace.py: Tracer.readout)
+        f32 = torch.float32
+        parts = [
+            x_post.pos.to(f32), x_post.rot.to(f32),
+            torch.stack([n_valid.to(f32),
+                         voxel_hash.num_voxels(ls.map).to(f32)]),
+            x_prop.pos.to(f32), x_prop.rot.to(f32), x_post.vel.to(f32),
+            x_post.bg.to(f32), x_post.ba.to(f32), x_post.grav.to(f32),
+            n_eff[None].to(f32), passes,
+            torch.zeros(1, dtype=f32, device=device),
+        ]
+        tr = trace_active()
+        if tr is not None:
+            parts.append(tr.readout())
+        info_vec = torch.cat(parts)
+        if scan_valid is not None:
+            info_vec = torch.where(scan_valid, info_vec, 0.0)
+        return ls, info_vec
+
+    def scan(ls, pts, pt_t, pt_valid, imu_b, last_end_rel, scan_end_t,
+             acc_norm, scan_valid):
+        """The stages of the tick: (ls', x_prop, x_post, n_valid, n_eff,
+        passes)."""
         ls_in = ls
         if scan_valid is not None:
             pt_valid = pt_valid & scan_valid
             imu_b = imu_b._replace(mask=imu_b.mask & scan_valid)
 
         # ---- IMU forward propagation + backward undistortion -------------
-        with record_function("lio.imu"):
+        with span("lio.imu"):
             x_prop, P_prop, poses = imu.propagate(
                 ls.x, ls.P, imu_b, Q, acc_norm, last_end_rel, scan_end_t,
                 ls.last_acc_w, ls.last_gyr_b)
@@ -312,35 +348,36 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
             pt_valid = collectives.all_gather(pt_valid, mesh)
 
         # ---- local map FoV crop around the lidar position -----------------
-        with record_function("lio.fov_crop"):
+        with span("lio.fov_crop"):
             pos_lid = x_prop.pos + so3.quat_rotate(x_prop.rot, x_prop.off_t)
             ls = _fov_segment(ls, pos_lid, mp.cube_len, mp.det_range,
                               enabled=scan_valid, skip_points=steady,
                               no_crop=mom_dense)
 
         # ---- scan downsample ---------------------------------------------
-        with record_function("lio.downsample"):
+        with span("lio.downsample"):
             pts_ds, ds_valid = voxel_downsample(
                 pts_body, pt_valid, mp.surf_leaf_size,
                 out_size=sh.n_ds // D if local_ds else sh.n_ds,
                 packed_key=packed_key, drop_high_z=sh.ds_drop_high_z)
 
         # ---- iterated ESIKF update ----------------------------------------
-        n_valid = torch.sum(ds_valid.to(torch.int32))
-        if local_ds:  # the global count: the gate is the same on every rank
-            n_valid = collectives.psum(n_valid, mesh)
-        pts_meas, val_meas = pts_ds, ds_valid
-        if mesh is not None and not local_ds:
-            # this rank associates and solves its contiguous 1/D slice
-            n_loc = sh.n_ds // D
-            start = mesh.rank * n_loc
-            pts_meas = pts_ds[start:start + n_loc]
-            val_meas = ds_valid[start:start + n_loc]
-        x_post, P_post, n_eff, passes = update(ls, x_prop, P_prop, pts_meas,
-                                               val_meas, n_valid)
+        with span("lio.update"):
+            n_valid = torch.sum(ds_valid.to(torch.int32))
+            if local_ds:  # the global count: the same gate on every rank
+                n_valid = collectives.psum(n_valid, mesh)
+            pts_meas, val_meas = pts_ds, ds_valid
+            if mesh is not None and not local_ds:
+                # this rank associates and solves its contiguous 1/D slice
+                n_loc = sh.n_ds // D
+                start = mesh.rank * n_loc
+                pts_meas = pts_ds[start:start + n_loc]
+                val_meas = ds_valid[start:start + n_loc]
+            x_post, P_post, n_eff, passes = update(ls, x_prop, P_prop,
+                                                   pts_meas, val_meas, n_valid)
 
         # ---- map incremental insert --------------------------------------
-        with record_function("lio.insert"):
+        with span("lio.insert"):
             pts_world = measurement.transform_to_world(x_post, pts_ds)
             if mom_dense:
                 # one header gather and one budgeted row scatter into the
@@ -379,23 +416,7 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
             ls = ls._replace(**{
                 f: tree_where(scan_valid, getattr(ls, f), getattr(ls_in, f))
                 for f in ls._fields if f != "map"})
-        # every per-scan output in ONE flat f32 vector (one readback):
-        #   [0:3] post pos  [3:7] post quat  [7] n_valid  [8] map voxels
-        #   [9:12] prop pos  [12:16] prop quat  [16:19] vel  [19:22] bg
-        #   [22:25] ba  [25:28] grav  [28] n_eff  [29] ESIKF passes run
-        #   [30] lazy refresh fired (0/1)  [31] pad
-        f32 = torch.float32
-        info_vec = torch.cat([
-            x_post.pos.to(f32), x_post.rot.to(f32),
-            torch.stack([n_valid.to(f32), voxel_hash.num_voxels(m).to(f32)]),
-            x_prop.pos.to(f32), x_prop.rot.to(f32), x_post.vel.to(f32),
-            x_post.bg.to(f32), x_post.ba.to(f32), x_post.grav.to(f32),
-            n_eff[None].to(f32), passes,
-            torch.zeros(1, dtype=f32, device=device),
-        ])
-        if scan_valid is not None:
-            info_vec = torch.where(scan_valid, info_vec, 0.0)
-        return ls, info_vec
+        return ls, x_prop, x_post, n_valid, n_eff, passes
 
     # a gloo mesh stages its collectives through the host
     step.sync_free = mesh is None or mesh.capturable
@@ -555,7 +576,7 @@ class LIOPipeline:
     def __init__(self, cfg: LIOConfig, device=None, pipelined: bool = False,
                  window: int = 1, quantized: bool = False,
                  readback_depth: int = 1, unroll: int = 1, mesh=None,
-                 graphed: bool = True):
+                 graphed: bool = True, trace: bool = False):
         """The options of the reference's LIOPipeline (:590-697):
 
         Per scan (window=1, unquantized) on CUDA, each scan is one packed
@@ -569,9 +590,19 @@ class LIOPipeline:
         scan's tensors.
 
         graphed=False asks for eager ticks on CUDA (the same ticks, the
-        same results; tools/profile_torch_scan.py uses it so that its
-        record_function spans time the stages).  A capture that fails
-        raises; nothing falls back to eager ticks by itself.
+        same results; the tests hold the replays to them).  A capture that
+        fails raises; nothing falls back to eager ticks by itself.
+
+        trace=True (per-scan mode, no mesh) traces the step
+        (utils/trace.py): its stage spans are stamped on the device inside
+        the captured graph, its counters (IF bodies taken, map claims,
+        probe rounds) ride the same readback as the info vector, and each
+        scan's record (`traces`, a ring of the last TRACE_RING scans;
+        also the "trace" entry of its result) holds them with the host's
+        spans of the call (lio.host.pack, lio.host.launch, lio.host.wait,
+        lio.host.record) and the device's wait for the scan's start
+        (lio.launch, from a mark stamped right before the input copy).
+        Off, the step and its graph are the untraced ones, node for node.
 
         pipelined=True overlaps the info readback with the next scan's
         work: process_scan returns the PREVIOUS scan's result (or, in
@@ -611,6 +642,9 @@ class LIOPipeline:
         if mesh is not None and (int(window) <= 1 or quantized):
             raise ValueError("mesh mode: use window > 1 and the unquantized "
                              "wire")
+        if trace and (mesh is not None or int(window) > 1 or quantized):
+            raise ValueError("trace=True traces the per-scan step on one "
+                             "device: no mesh, window or quantized wire")
         self.mesh = mesh
         self.device = resolve_device(device) if mesh is None else mesh.device
         if mesh is not None and device is not None:
@@ -678,6 +712,11 @@ class LIOPipeline:
         self.last_scan_end_abs: float | None = None  # f64 host clock
         self.trajectory: list[np.ndarray] = []
         self._pending_info = None  # per-scan pipelined readback
+        # the step's trace: the tracer, the records of the last scans, and
+        # the host side of each scan launched and not yet recorded
+        self._tracer = Tracer(self.device) if trace else None
+        self.traces: deque = deque(maxlen=TRACE_RING)
+        self._trace_meta: deque = deque()
         self._wbuf: list[tuple] = []  # buffered scans of the open window
         self._pending_ws: list[tuple] = []  # [(readback, n_valid)]
         self._results: list[dict] = []  # completed per-scan dicts (FIFO)
@@ -828,6 +867,29 @@ class LIOPipeline:
                 np.asarray(pts, np.float32), np.asarray(pt_t),
                 n_rings=self.cfg.preprocess.scan_line)
 
+        if self._tracer is not None:
+            return self._traced_scan(pts, pt_t, imu_acc, imu_gyr, imu_t,
+                                     scan_beg_abs, scan_end_t)
+        prog, entry, host = self._prepare(pts, pt_t, imu_acc, imu_gyr, imu_t,
+                                          scan_beg_abs, scan_end_t)
+        if self._use_window:
+            return self._results.pop(0) if self._results else None
+        info_vec = self._launch(prog, entry, host)
+        if not self.pipelined:
+            return self._record(np.asarray(to_host(info_vec), np.float32))
+        # overlap the result's host copy with the next scan
+        prev, self._pending_info = (self._pending_info,
+                                    readback_async(info_vec))
+        return None if prev is None else self._record(readback_wait(prev))
+
+    def _prepare(self, pts, pt_t, imu_acc, imu_gyr, imu_t, scan_beg_abs,
+                 scan_end_t):
+        """A scan's host work before its tick: the padded arrays, the map
+        rebuild at its cadence, and per scan the program that runs it
+        (the warmup->steady handoff) with, on CUDA, the packed pinned row.
+        Returns (program, padded entry, row); in window mode the scan is
+        buffered (its window dispatched when full) and the program and row
+        are None."""
         P, T, V = self._pad_points(pts, pt_t)
         A, G, Tt, Mk = self._pad_imu(imu_acc, imu_gyr, imu_t)
         self._scan_count += 1
@@ -847,11 +909,11 @@ class LIOPipeline:
         last_end_rel = (self.last_scan_end_abs - scan_beg_abs
                         if self.last_scan_end_abs is not None else 0.0)
         self.last_scan_end_abs = scan_beg_abs + scan_end_t
+        entry = (P, T, V, A, G, Tt, Mk, last_end_rel, scan_end_t)
 
         if self._use_window:
             if self.quantized:
-                self._wbuf.append(self._pack_quant(
-                    P, T, V, A, G, Tt, Mk, last_end_rel, scan_end_t))
+                self._wbuf.append(self._pack_quant(*entry))
             else:
                 if self.mesh is not None:  # this rank's rows only
                     rows = slice(self.mesh.rank * self._n_pts,
@@ -861,7 +923,7 @@ class LIOPipeline:
                                    scan_end_t))
             if len(self._wbuf) == self.window:
                 self._dispatch_window()
-            return self._results.pop(0) if self._results else None
+            return None, entry, None
 
         if self._scan_count > self._warmup_scans:
             if self._graph_of == "warmup":
@@ -869,21 +931,51 @@ class LIOPipeline:
                 # its pool) before the steady state takes its dense table
                 self.graph, self._graph_of = None, None
             self._ensure_dmom()
-            prog, step = "steady", self._step
+            prog = "steady"
         else:
-            prog, step = "warmup", self._step_warm
-        if self.device.type == "cuda":  # (per scan there is no mesh)
-            info_vec = self._scan_tick(prog, (P, T, V, A, G, Tt, Mk,
-                                              last_end_rel, scan_end_t))
-        else:
-            info_vec = self._scan_eager(step, P, T, V, A, G, Tt, Mk,
-                                        last_end_rel, scan_end_t)
+            prog = "warmup"
+        host = (self._pack_window([entry]) if self.device.type == "cuda"
+                else None)
+        return prog, entry, host
+
+    def _launch(self, prog: str, entry: tuple, host) -> torch.Tensor:
+        """The scan's tick: on CUDA from its packed row (_scan_tick), on
+        the CPU eagerly on its own tensors.  Returns the info vector."""
+        if host is not None:  # (per scan there is no mesh)
+            return self._scan_tick(prog, host)
+        step = self._step if prog == "steady" else self._step_warm
+        return self._scan_eager(step, *entry)
+
+    def _traced_scan(self, *args):
+        """process_scan with the step traced: the host's spans of the call
+        around the tick, which runs with the tracer active, and the scan's
+        record built where its result is (now, or pipelined at the next
+        call)."""
+        t_pack = time.perf_counter_ns()
+        prog, entry, host = self._prepare(*args)
+        t_launch = time.perf_counter_ns()
+        self._tracer.mark()
+        with tracing(self._tracer):
+            info_vec = self._launch(prog, entry, host)
+        self._trace_meta.append(
+            (self._scan_count, args[5], self._tracer.sites,
+             {"lio.host.pack": (t_pack, t_launch),
+              "lio.host.launch": (t_launch, time.perf_counter_ns())}))
         if not self.pipelined:
-            return self._record(np.asarray(to_host(info_vec), np.float32))
-        # overlap the result's host copy with the next scan
+            t_wait = time.perf_counter_ns()
+            v = np.asarray(to_host(info_vec), np.float32)
+            return self._record(v, (t_wait, time.perf_counter_ns()))
         prev, self._pending_info = (self._pending_info,
                                     readback_async(info_vec))
-        return None if prev is None else self._record(readback_wait(prev))
+        return None if prev is None else self._wait_record(prev)
+
+    def _wait_record(self, rb) -> dict:
+        """The record of a pipelined readback `rb`, once it has arrived."""
+        if self._tracer is None:
+            return self._record(readback_wait(rb))
+        t_wait = time.perf_counter_ns()
+        v = readback_wait(rb)
+        return self._record(v, (t_wait, time.perf_counter_ns()))
 
     def _scan_eager(self, step, P, T, V, A, G, Tt, Mk, last_end_rel,
                     scan_end_t) -> torch.Tensor:
@@ -895,15 +987,15 @@ class LIOPipeline:
             self._t(last_end_rel), self._t(scan_end_t), self._t(self.acc_norm))
         return info_vec
 
-    def _scan_tick(self, prog: str, entry: tuple) -> torch.Tensor:
+    def _scan_tick(self, prog: str, host: torch.Tensor) -> torch.Tensor:
         """One scan on CUDA as one tick of `prog` ("warmup" or "steady")
-        on its packed unquantized row (_pack_window, W = 1, pinned):
-        a replay of the program's one-tick graph, which takes the row in
-        one non-blocking copy.  The program's first scan is copied to the
-        device, run eagerly on the capture stream, and the graph captured
-        from the state it leaves (StepGraph.warm_up_and_capture); with
-        graphed=False every tick runs eagerly.  Returns the (32,) info."""
-        host = self._pack_window([entry])
+        on its packed unquantized row `host` (_pack_window, W = 1,
+        pinned): a replay of the program's one-tick graph, which takes the
+        row in one non-blocking copy.  The program's first scan is copied
+        to the device, run eagerly on the capture stream, and the graph
+        captured from the state it leaves
+        (StepGraph.warm_up_and_capture); with graphed=False every tick
+        runs eagerly.  Returns the (32,) info (more while traced)."""
         if self._acc_t is None:  # read by the ticks and the graph
             self._acc_t = self._t(self.acc_norm)
         if self.graph is not None and self._graph_of == prog:
@@ -968,7 +1060,10 @@ class LIOPipeline:
         meta[8 * m_imu:] = [float(V.sum()), last_end_rel, scan_end_t, 1.0]
         return bulk, meta
 
-    def _record(self, v: np.ndarray) -> dict:
+    def _record(self, v: np.ndarray, wait=None) -> dict:
+        """The result dict of a scan's readback `v`; while traced, with the
+        scan's trace record (`wait`: the host's wait for `v`, ns)."""
+        t_record = time.perf_counter_ns() if self._tracer is not None else 0
         out = {
             "pos": v[0:3],
             "quat": v[3:7],
@@ -987,6 +1082,13 @@ class LIOPipeline:
             "refreshed": bool(v[30]),
         }
         self.trajectory.append(v[0:7].copy())
+        if self._tracer is not None:
+            scan, stamp, sites, host = self._trace_meta.popleft()
+            host["lio.host.wait"] = wait
+            rec = self._tracer.record(v[32:], sites, scan, stamp, host)
+            out["trace"] = rec
+            self.traces.append(rec)
+            host["lio.host.record"] = (t_record, time.perf_counter_ns())
         return out
 
     # -- window mode --------------------------------------------------------
@@ -1106,4 +1208,4 @@ class LIOPipeline:
         if self._pending_info is None:
             return None
         rb, self._pending_info = self._pending_info, None
-        return self._record(readback_wait(rb))
+        return self._wait_record(rb)

@@ -137,9 +137,11 @@ def cmd_mapping(args):
         cfg.gps.enable = True
     # async pose-graph optimization when loops are on — the reference's
     # detached loop-closure thread (laserMapping.cpp:2216)
+    # the time log's stage and map columns come from the step's trace
     pipe = SLAMPipeline(
         cfg, async_backend=cfg.loop.enable and not args.sync_backend,
-        device=args.device)
+        device=args.device,
+        lio_kwargs={"trace": True} if args.output else None)
     if args.dynamic_dump:
         pipe.dynamic_dump_dir = args.dynamic_dump
     gps_fixes = _gps_fixes(cfg, args)
@@ -227,6 +229,8 @@ def cmd_mapping(args):
                 dyn_gt.append(g["gt_dynamic"])
             timer.count("scan_points", len(g["pts"]))
             timer.end_scan()
+            if out is not None and "trace" in out:
+                timer.trace_scan(out)
             n += 1
             if out is not None and logs is not None:
                 t = g["scan_beg_abs"]

@@ -16,7 +16,9 @@ it is a CUDA-graph conditional (IF) node, so that a replay runs the true
 branch only when the predicate holds on the device, as the reference's
 compiled program does.  The form follows from the mode alone.  The node
 is built through the CUDA driver API (`if_node`): torch 2.11 has no
-binding for conditional nodes.
+binding for conditional nodes.  While the step is traced (utils/trace.py)
+both forms count the bodies taken under the node's name: the IF node's
+condition kernel adds its condition, the select form its predicate.
 """
 
 from __future__ import annotations
@@ -29,12 +31,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import trace
 from .tree import tree_clone, tree_copy_, tree_where
 
 __all__ = ["resolve_device", "to_host", "nonzero_static",
            "host_syncs", "HostReadInCapture", "Readback", "readback_async",
            "readback_wait", "cond", "conditional", "if_node", "open_nodes",
-           "bodies", "step_capture", "in_step_capture"]
+           "bodies", "step_capture", "in_step_capture", "node_epoch"]
 
 
 class HostReadInCapture(RuntimeError):
@@ -146,12 +149,19 @@ _side: dict = {}  # (device index, depth) -> the stream bodies capture on
 _MAX_DEPTH = 4
 _cu = None
 _set_cond = None
+_epoch = 0  # IF node bodies opened and closed in the process
 
 
 def open_nodes() -> tuple[str, ...]:
     """The names of the IF nodes whose bodies are being captured now,
     outermost first (empty outside a body)."""
     return tuple(_open)
+
+
+def node_epoch() -> int:
+    """The count of IF node bodies opened and closed so far: two points
+    of a capture with the same count lie in one body."""
+    return _epoch
 
 
 def conditional(pred, mesh=None) -> bool:
@@ -251,7 +261,7 @@ def _set_condition():
 
         fn = _build.load("graph_conditional").graph_conditional_set
         fn.argtypes = [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _set_cond = fn
     return _set_cond
@@ -269,7 +279,7 @@ def step_capture(pool, device: torch.device):
     begins): IF nodes may open in it, their bodies capture on streams made
     here and allocate from `pool` (a torch.cuda.MemPool that the caller
     keeps alive as long as the graph), and the kernels count the launches
-    it captures on the device (ops/kernels.launch_counter)."""
+    it captures on the device (ops/kernels.device_counter)."""
     idx = torch.device(device).index or 0
     for depth in range(_MAX_DEPTH):
         if (idx, depth) not in _side:
@@ -300,9 +310,11 @@ def if_node(pred: torch.Tensor, name: str = "cond"):
     that sets the condition from `pred`, the IF node after it, and the
     block captured on a stream of its own (the current stream inside the
     block) into the node's body graph, allocating from the pool of the
-    enclosing step_capture.  Raises when the capture was not
-    opened with step_capture, nests deeper than _MAX_DEPTH or the
-    driver refuses; nothing falls back to a select."""
+    enclosing step_capture.  While the step is traced, the condition
+    kernel also adds the condition to the trace's counter of `name`.
+    Raises when the capture was not opened with step_capture, nests
+    deeper than _MAX_DEPTH or the driver refuses; nothing falls back to a
+    select."""
     if (pred.dtype != torch.bool or pred.dim() != 0
             or pred.device.type != "cuda"):
         raise ValueError(f"if_node {name!r}: the predicate must be a () bool "
@@ -327,6 +339,7 @@ def if_node(pred: torch.Tensor, name: str = "cond"):
                                              ctx, 0, 0),
            "cuGraphConditionalHandleCreate")
     _check(_set_condition()(handle.value, pred.data_ptr(), 0,
+                            trace.counter_ptr(name) or None,
                             stream.cuda_stream), "the condition kernel")
     graph, deps, n = _capture_info(cu, hs)
     params = _NodeParams()
@@ -354,8 +367,10 @@ def if_node(pred: torch.Tensor, name: str = "cond"):
         hside, ctypes.c_void_p(body), None, None, 0,
         _CU_STREAM_CAPTURE_MODE_THREAD_LOCAL),
         f"cuStreamBeginCaptureToGraph ({name!r}, depth {depth})")
+    global _epoch
     bodies.append(body)
     _open.append(name)
+    _epoch += 1
     try:
         with contextlib.ExitStack() as stack:
             stack.enter_context(torch.cuda.stream(side))
@@ -364,6 +379,7 @@ def if_node(pred: torch.Tensor, name: str = "cond"):
             yield
     finally:
         _open.pop()
+        _epoch += 1
         out = ctypes.c_void_p()
         _check(cu.cuStreamEndCapture(hside, ctypes.byref(out)),
                "cuStreamEndCapture")
@@ -379,11 +395,17 @@ def cond(pred, true_fn, operand, *, mesh=None, name: str = "cond",
     non-mesh step, an IF node: the result's tensors are made before the
     node (clones of `operand`, or with `inplace` the operand's own
     tensors, which the caller then gives up), and the body copies
-    true_fn's result into them.  Both forms give the same bits."""
+    true_fn's result into them.  Both forms give the same bits, and the
+    same counts of bodies taken while the step is traced."""
     if isinstance(pred, bool):
         return true_fn(operand) if pred else operand
     if not conditional(pred, mesh):
-        return tree_where(pred, true_fn(operand), operand)
+        tr = trace.active()
+        if tr is None:
+            return tree_where(pred, true_fn(operand), operand)
+        with tr.taken(name, pred):
+            taken = true_fn(operand)
+        return tree_where(pred, taken, operand)
     out = operand if inplace else tree_clone(operand)
     with if_node(pred, name):
         tree_copy_(out, true_fn(operand))

@@ -7,7 +7,10 @@ src/laserMapping.cpp:19-23, 2438-2455) and its on-exit CSV dump with the
 same header/columns (:2562-2574, `fast_lio_time_log.csv`) so the
 reference's MATLAB analysis script (Log/fast_lio_time_log_analysis.m)
 runs unchanged on our logs.  Extra named stages can be recorded freely;
-the CSV writer maps the canonical ones onto the reference columns.
+the CSV writer maps the canonical ones onto the reference columns.  On a
+traced pipeline (LIOPipeline(trace=True)) `trace_scan` fills a scan's
+stage times and map counts from its spans and counters, which the step
+records on the device (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -49,6 +52,30 @@ class ScanTimer:
     def count(self, name: str, value):
         if self._cur is not None:
             self._cur[name] = value
+
+    def trace_scan(self, out: dict) -> None:
+        """Fill the row of the scan whose traced result `out` is (its
+        "trace" record, found by its time stamp; results may come later
+        than their scan): `map_incremental` the lio.insert span,
+        `search` lio.update, `preprocess` lio.imu + lio.fov_crop +
+        lio.downsample (device seconds), `tree_size_st` / `tree_size_end`
+        the map's voxels before and after the insert, `add_points` the
+        voxels it claimed."""
+        rec = out["trace"]
+        row = next((r for r in reversed(self.rows)
+                    if r.get("time_stamp") == rec.stamp), None)
+        if row is None:
+            return
+        claims = rec.counters["map.claims"]
+        ms = rec.stage_ms(("lio.insert", "lio.update", "lio.imu",
+                           "lio.fov_crop", "lio.downsample"))
+        row.update(
+            map_incremental=1e-3 * ms["lio.insert"],
+            search=1e-3 * ms["lio.update"],
+            preprocess=1e-3 * (ms["lio.imu"] + ms["lio.fov_crop"]
+                               + ms["lio.downsample"]),
+            tree_size_st=out["map_voxels"] - claims,
+            tree_size_end=out["map_voxels"], add_points=claims)
 
     def end_scan(self):
         if self._cur is not None:

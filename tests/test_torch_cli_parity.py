@@ -8,7 +8,9 @@ pipelines track it.  The state dumps (`pos_log.txt`, `mat_pre.txt`,
 keyframe count is equal, the session's keyframe poses agree within one
 printed step of the g2o file (1e-6), the keyframe clouds and descriptors
 are the same bytes; the time log has the same header, rows, stamps and
-point counts; the summary lines agree but for the measured rate."""
+point counts, and the port's map counts (from its step's trace; the JAX
+package writes 0) add up; the summary lines agree but for the measured
+rate."""
 
 import contextlib
 import io
@@ -115,6 +117,17 @@ def test_time_log_matches_jax(mapped):
     cols_t = [r[0].split(",") for r in tt[1:]]
     cols_j = [r[0].split(",") for r in tj[1:]]
     assert all(len(c) == 11 for c in cols_t + cols_j)
-    # the stamp and every count column; the others are measured times
-    for k in (0, 2, 5, 7, 8, 9):
+    # the stamp and the point and delete counts; the others are measured
+    # times, and the map counts, which the JAX package leaves 0
+    for k in (0, 2, 5):
         assert [c[k] for c in cols_t] == [c[k] for c in cols_j], k
+    assert all(c[k] == "0" for c in cols_j for k in (7, 8, 9))
+    # the port's map counts, from the step's trace (ScanTimer.trace_scan):
+    # every scan with a result (the init scan has none, the last one's is
+    # pending at the end) grows the map by the voxels it claims, and
+    # without a crop one scan's map is the next one's start
+    st, end, add = (np.array([int(c[k]) for c in cols_t[1:-1]])
+                    for k in (7, 8, 9))
+    assert np.all(end - st == add) and add[0] == end[0] > 0
+    np.testing.assert_array_equal(st[1:], end[:-1])
+    assert all(c[k] == "0" for c in (cols_t[0], cols_t[-1]) for k in (7, 8, 9))

@@ -78,6 +78,13 @@ counted on the device, are exactly what each replayed scan's passes,
 refresh and width imply (K1 once a pass plus once for a refresh's
 re-solve, one width a solve; K2 once a pass); a nested IF node runs its
 body only when both predicates hold.
+
+The step's trace (utils/trace.py): with tracing off the captured graph
+holds no trace node and the same nodes by type after a traced pipeline;
+traced, the replays equal the traced eager ticks in every info value,
+counter and span tree, and the untraced replays in every info value; a
+traced steady scan makes the untraced scan's one host read and, pipelined,
+no sync.
 """
 
 import numpy as np
@@ -1363,7 +1370,7 @@ def test_cuda_nested_if_nodes_run_only_when_taken(cuda):
         return tdev.cond(outer, body, G0)
 
     step()  # the launcher is built, the counters made
-    tk.launch_counter("fused_normal_eqs", cuda)
+    tk.device_counter("fused_normal_eqs", cuda)
     torch.cuda.synchronize()
     tdev.bodies.clear()
     g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -1383,3 +1390,108 @@ def test_cuda_nested_if_nodes_run_only_when_taken(cuda):
         want = (G_k if i else G0 * 2.0) if o else G0
         assert torch.equal(out, want)
     assert tk.device_launches("fused_normal_eqs") == 1
+
+
+# ---- the step's trace (utils/trace.py) ----------------------------------
+
+def _outs(pipe, groups):
+    outs = [pipe.process_scan(*_args(g)) for g in groups]
+    return [o for o in outs if o is not None]
+
+
+def _untraced(out):
+    return {k: np.asarray(v) for k, v in out.items() if k != "trace"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["row", "bench"])
+def test_cuda_trace_off_graph_has_no_trace_node(cuda, program):
+    """With tracing off the captured graph holds no stamp or readout node
+    (the condition kernels take a null counter), and a traced pipeline
+    before it leaves the next untraced capture the same nodes by type;
+    the traced graph adds the trace's stamp and readout nodes and the
+    counters' few kernels, and no node of another type."""
+    groups = _bench_groups() if program == "bench" else _groups()
+    cfg = _per_scan_cfg(program)
+    p0 = LIOPipeline(cfg)
+    _outs(p0, groups)
+    pt = LIOPipeline(_per_scan_cfg(program), trace=True)
+    _outs(pt, groups)
+    p1 = LIOPipeline(_per_scan_cfg(program))
+    _outs(p1, groups)
+    off, on, again = (p.graph.nodes for p in (p0, pt, p1))
+    assert off["trace"] == again["trace"] == 0 and on["trace"] > 0
+    assert off["by_type"] == again["by_type"]
+    assert off["conditional"] == on["conditional"] > 0
+    extra = {k: on["by_type"][k] - off["by_type"].get(k, 0)
+             for k in on["by_type"]}
+    assert extra["kernel"] >= on["trace"] and not any(
+        v for k, v in extra.items() if k != "kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["main", "row", "bench"])
+def test_cuda_traced_replay_matches_eager_ticks(cuda, program):
+    """Traced, the replays equal the traced eager ticks (graphed=False)
+    bit for bit in every info value and every counter, and both equal
+    the untraced replays' info values; the replays' span trees (names and
+    parents) are the eager ticks', their stages partition lio.scan, and
+    each scan's esikf.pass bodies taken are its passes less one."""
+    groups = _bench_groups() if program == "bench" else _groups()
+    cfg = _per_scan_cfg(program)
+    runs = {}
+    for name, kw in (("off", {}), ("replay", dict(trace=True)),
+                     ("eager", dict(trace=True, graphed=False))):
+        runs[name] = _outs(LIOPipeline(_per_scan_cfg(program), **kw), groups)
+    assert len(runs["replay"]) == len(groups) - 1
+    for off, rep, eag in zip(runs["off"], runs["replay"], runs["eager"]):
+        for a, b in ((rep, off), (eag, off)):
+            ua, ub = _untraced(a), _untraced(b)
+            assert ua.keys() == ub.keys()
+            for k in ua:
+                np.testing.assert_array_equal(ua[k], ub[k])
+        tr, te = rep["trace"], eag["trace"]
+        assert tr.counters == te.counters
+        assert tr.counters["esikf.pass"] == rep["iters"] - 1
+        tree = [(s.name, s.parent) for s in tr.spans]
+        assert tree == [(s.name, s.parent) for s in te.spans]
+        sp = {s.name: s for s in tr.spans}
+        stages = [sp[n] for n in ("lio.imu", "lio.fov_crop", "lio.downsample",
+                                  "lio.update", "lio.insert")]
+        for a, b in zip(stages, stages[1:]):
+            assert a.end_us == b.start_us
+        assert 0.0 <= stages[0].start_us and (
+            stages[-1].end_us <= sp["lio.scan"].end_us)
+    assert cfg.ikdtree.max_iteration >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_trace_keeps_one_sync_a_scan(cuda):
+    """Tracing on, a steady scan makes the untraced scan's host reads
+    through utils.device (one, the readback), and pipelined it still
+    runs under sync debug mode "error"."""
+    from better_fastlio2_tpu_torch.utils.device import host_syncs
+
+    groups = _bench_groups()
+    counts = {}
+    for traced in (False, True):
+        p = LIOPipeline(_bench_cfg(), trace=traced)
+        for g in groups[:10]:
+            p.process_scan(*_args(g))
+        host_syncs.reset()
+        for g in groups[10:14]:
+            p.process_scan(*_args(g))
+        counts[traced] = host_syncs.count
+    assert counts[True] == counts[False] == 4
+    p = LIOPipeline(_bench_cfg(), pipelined=True, trace=True)
+    for g in groups[:10]:
+        p.process_scan(*_args(g))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in groups[10:13]:
+            out = p.process_scan(*_args(g))
+            assert out["trace"].counters["esikf.pass"] == out["iters"] - 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert p.flush()["trace"].scan == 12

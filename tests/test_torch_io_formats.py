@@ -270,7 +270,11 @@ def test_handlers_match_jax(handler):
 def test_scan_timer_csv_matches_jax(tmp_path, monkeypatch):
     """ScanTimer's fast_lio_time_log.csv (laserMapping.cpp:2562-2574): the
     same header and columns as the JAX package's for the same stages and
-    counters, on a shared fake clock."""
+    counters, on a shared fake clock.  The port's trace_scan fills a
+    scan's row, found by its stamp, from a traced result: incremental
+    time from lio.insert, search time from lio.update, preprocess time
+    from lio.imu + lio.fov_crop + lio.downsample, the tree sizes from the
+    map's voxels and the claims, add point size from the claims."""
     clock = iter(np.arange(0, 1000, 0.0125))
 
     def fake():
@@ -298,6 +302,43 @@ def test_scan_timer_csv_matches_jax(tmp_path, monkeypatch):
     assert rows == paths[1].read_text().splitlines()
     assert len(rows) == 6 and rows[0] + "\n" == ttiming.CSV_HEADER
     assert all(len(r.split(",")) == 11 for r in rows)
+
+    from better_fastlio2_tpu_torch.utils import trace as ttrace
+
+    sites = tuple(ttrace.SpanSite(*s) for s in (
+        ("lio.scan", -1, 0, 8), ("lio.imu", 0, 1, 2),
+        ("lio.fov_crop", 0, 2, 3), ("lio.downsample", 0, 3, 4),
+        ("lio.update", 0, 4, 5), ("lio.update.pass", 4, 6, 7),
+        ("lio.insert", 0, 5, 9)))
+
+    def traced(stamp, voxels, claims):
+        """A traced result: the readout of a scan whose stages took 2.5,
+        0.1, 0.4, 5.0 and 0.8 ms, its insert claiming `claims` voxels."""
+        values = np.full(ttrace.TRACE_LEN, np.nan, np.float32)
+        values[:3] = 0.0
+        values[3:13] = [0, 10, 2510, 2610, 3010, 8010, 3020, 5000, 9000,
+                        8810]
+        values[3 + ttrace.STAMPS:-1] = 0
+        values[3 + ttrace.STAMPS + ttrace.COUNTERS.index("map.claims")] = \
+            claims
+        return {"map_voxels": voxels, "trace": ttrace.ScanTrace(
+            7, stamp, values, sites, {"lio.host.wait": (50, 9100)})}
+
+    timer = ttiming.ScanTimer()
+    for k in range(3):
+        timer.begin_scan(1.6e9 + 0.1 * k)
+        timer.count("scan_points", 1000 + k)
+        timer.end_scan()
+    timer.trace_scan(traced(1.6e9 + 0.1, 5200, 180))  # a result a scan late
+    timer.trace_scan(traced(1.7e9, 1, 1))  # no such scan: nothing
+    timer.write_csv(str(tmp_path / "traced.csv"))
+    cols = [r.split(",") for r in
+            (tmp_path / "traced.csv").read_text().splitlines()[1:]]
+    assert cols[0][3:] == cols[2][3:] == ["0.00000000", "0.00000000", "0",
+                                          "0.00000000", "0", "0", "0",
+                                          "0.00000000"]
+    assert cols[1][3:] == ["0.00080000", "0.00500000", "0", "0.00000000",
+                           "5020", "5200", "180", "0.00300000"]
 
 
 # ---- the evaluation harness (tests/test_evaluate.py on the port's copy;
