@@ -3,8 +3,9 @@
 Runs the per-scan LIO front end (IMU propagation and undistortion, FoV
 crop, voxel downsample, 5-NN or moment-plane association with the
 iterated ESIKF update, map insert) on one NVIDIA GPU.  The ESIKF normal
-equations run as hand-written CUDA kernels (ops/kernels.fused_normal_eqs
-and fused_hth); everything else is plain PyTorch.  The JAX package beside this one is the reference: module
+equations (ops/kernels.fused_normal_eqs and fused_hth) and the IMU stage
+(ops/kernels.imu_stage) run as hand-written CUDA kernels; everything
+else is plain PyTorch.  The JAX package beside this one is the reference: module
 names and layout mirror it, and the tests hold each module against its JAX
 counterpart.
 

@@ -10,6 +10,12 @@ Translation notes:
 * the forward fill of recorded rates is torch.cummax;
 * jax.vmap(predict_jacobians) is the batched predict_jacobians itself;
 * the power-of-two tree reduce of the covariance composition stays.
+
+`stage` is the whole stage of a scan (propagate, then undistort).  On
+CUDA tensors it is one launch of the hand-written kernel
+ops/kernels.imu_stage (csrc/imu_stage.cu), in place of the ~2.9k launches
+of the plain version; on CPU tensors it runs `propagate` and `undistort`
+as they are, which stay the plain version and the tests' reference.
 """
 
 from __future__ import annotations
@@ -18,13 +24,14 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import kernels
 from ..utils import s2 as s2m
 from ..utils import so3
 from .esikf import predict, predict_jacobians
 from .state import ERR_DIM, State, init_P
 
 __all__ = ["ImuBatch", "ImuPoses", "imu_init", "propagate", "undistort",
-           "build_Q"]
+           "stage", "build_Q"]
 
 
 class ImuBatch(NamedTuple):
@@ -234,3 +241,24 @@ def undistort(x_end: State, poses: ImuPoses, pts: torch.Tensor,
              + 0.5 * acc_t * dt * dt)
     p_imu_e = so3.quat_inv_rotate(x_end.rot, p_w_i - x_end.pos)
     return so3.quat_inv_rotate(x_end.off_r, p_imu_e - x_end.off_t)
+
+
+def stage(x: State, P: torch.Tensor, batch: ImuBatch, Q: torch.Tensor,
+          acc_norm, last_scan_end_t, scan_end_t, last_acc_w: torch.Tensor,
+          last_gyr_b: torch.Tensor, pts: torch.Tensor, pt_t: torch.Tensor
+          ) -> tuple[State, torch.Tensor, ImuPoses, torch.Tensor]:
+    """The IMU stage of one scan: propagate, then undistort the points
+    with the propagated state.  Returns (state_at_scan_end, P, poses,
+    pts_body).  With the points or P on a CUDA device it is one launch of
+    ops/kernels.imu_stage (which raises on what the kernel does not take,
+    a mix of devices too; nothing falls back), else the plain functions
+    above."""
+    if pts.device.type == "cuda" or P.device.type == "cuda":
+        x_fin, P_fin, poses, pts_body = kernels.imu_stage(
+            x, P, batch.acc, batch.gyr, batch.t, batch.mask, Q, acc_norm,
+            last_scan_end_t, scan_end_t, last_acc_w, last_gyr_b, pts, pt_t)
+        return State(*x_fin), P_fin, ImuPoses(*poses), pts_body
+    x_fin, P_fin, poses = propagate(x, P, batch, Q, acc_norm,
+                                    last_scan_end_t, scan_end_t, last_acc_w,
+                                    last_gyr_b)
+    return x_fin, P_fin, poses, undistort(x_fin, poses, pts, pt_t)

@@ -10,6 +10,7 @@ time: the CPU tests import every module of the package and have no nvcc.
 
 Never add --use_fast_math or -prec-div=false: the kernels divide to find
 voxel coordinates, and a reciprocal multiply flips voxel boundaries.
+SOURCE_FLAGS adds a source's own flags (imu_stage: -fmad=false).
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per source: imu_stage rounds where its plain PyTorch version does, whose
+# elementwise products and sums are separate kernels (no contraction into
+# fused multiply-adds); its matrix products call fma themselves
+SOURCE_FLAGS = {"imu_stage": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -70,7 +75,8 @@ def build_all(names=None, force: bool = False) -> dict[str, str]:
     procs = []
     for name in names:
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -1,8 +1,12 @@
-"""The ESIKF measurement kernels: normal equations of one solve pass.
+"""The port's hand-written kernels: the ESIKF measurement kernels (normal
+equations of one solve pass) and the IMU stage.
 
 Port of better_fastlio2_tpu/ops/pallas_kernels.py: K1 (pack_soa and
 fused_normal_eqs) for the fused single-association solve, and K2
-(fused_hth) for the row path.
+(fused_hth) for the row path.  `imu_stage` (csrc/imu_stage.cu) has no
+TPU counterpart: it runs core/imu.py's propagate and undistort, the plain
+version, in one launch a scan (core/imu.py:stage takes it for CUDA
+tensors).
 
 K1.  The per-scan association results are packed once into a
 (SOA_CH, N) buffer; every solve pass then reduces it, under the current
@@ -36,7 +40,9 @@ nothing.  The counters are named (`device_counter`): a kernel's launches
 under its name, and the step trace's counts (utils/trace.py: IF bodies
 taken, map claims, probe rounds) under theirs.  `_neq_rows` and `_hth_rows` build the rows the kernels reduce
 without materialising them; chip_smoke.py times a matrix product on them
-as each kernel's library yardstick.
+as each kernel's library yardstick.  The IMU stage's wrapper counts its
+launches the same way; it refuses CPU tensors (its plain version lives in
+core/imu.py, whose stage() dispatches).
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ __all__ = ["SOA_CH", "pack_soa", "fused_normal_eqs", "device_counter",
            "fused_normal_eqs_reference", "fused_normal_eqs_tolerance",
            "fused_normal_eqs_handles",
            "fused_hth", "fused_hth_reference", "fused_hth_tolerance",
-           "fused_hth_handles"]
+           "fused_hth_handles", "imu_stage", "imu_stage_handles"]
 
 SOA_CH = 16
 # channel indices
@@ -148,18 +154,24 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "fused_normal_eqs": [_VP, _CI, _VP, _CI, _VP, _VP],
     "fused_hth": [_VP] * 6 + [_CI, _CI, _VP, _VP],
+    "imu_stage": [_VP] + [_CI] * 7 + [_VP],
 }
 _launchers: dict = {}  # name -> its launch function, once set up
 _CPU = torch.device("cpu")
-# per library: the thread-block cluster size its setup took, and
-# cudaOccupancyMaxActiveClusters at that size (filled at first use)
-cluster_info: dict[str, dict[str, int]] = {}
+# what each library's setup reports, filled at first use: K1 and K2 the
+# thread-block cluster size their setup took and
+# cudaOccupancyMaxActiveClusters at that size, the IMU stage its block
+# size and the dynamic shared memory it allowed a block
+_SETUP_KEYS = {"fused_normal_eqs": ("cluster", "max_active_clusters"),
+               "fused_hth": ("cluster", "max_active_clusters"),
+               "imu_stage": ("threads", "max_smem_bytes")}
+setup_info: dict[str, dict[str, int]] = {}
 
 
 def _launcher(name: str):
     """The launch function of csrc/<name>.cu: built, loaded and set up
-    (the cluster size picked) at the first call in the process, then a
-    dict lookup."""
+    (K1 and K2 pick their cluster size, the IMU stage allows its shared
+    memory) at the first call in the process, then a dict lookup."""
     fn = _launchers.get(name)
     if fn is not None:
         return fn
@@ -169,17 +181,35 @@ def _launcher(name: str):
     setup = getattr(lib, f"{name}_setup")
     setup.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     setup.restype = ctypes.c_int
-    cs, active = ctypes.c_int(), ctypes.c_int()
-    err = setup(ctypes.byref(cs), ctypes.byref(active))
+    v0, v1 = ctypes.c_int(), ctypes.c_int()
+    err = setup(ctypes.byref(v0), ctypes.byref(v1))
     if err != 0:
-        raise RuntimeError(f"{name}: cluster setup failed (CUDA error {err})")
-    cluster_info[name] = {"cluster": cs.value,
-                          "max_active_clusters": active.value}
+        raise RuntimeError(f"{name}: setup failed (CUDA error {err})")
+    setup_info[name] = dict(zip(_SETUP_KEYS[name], (v0.value, v1.value)))
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     _launchers[name] = fn
     return fn
+
+
+def _handles(name: str, instances: int) -> set[int]:
+    """The CUDA handles of a library's kernel instances (each one's
+    CUfunction in the current context and its CUkernel), by which the
+    kernel nodes of a captured CUDA graph name it (pipeline/graphs.py
+    counts them)."""
+    from . import _build
+
+    _launcher(name)
+    fn = getattr(_build.load(name), f"{name}_handles")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2
+    fn.restype = ctypes.c_int
+    func = (ctypes.c_void_p * instances)()
+    kern = (ctypes.c_void_p * instances)()
+    err = fn(func, kern)
+    if err != 0 or not all(func):
+        raise RuntimeError(f"{name}: no kernel handle (CUDA error {err})")
+    return {h for h in (*func, *kern) if h}
 
 
 _counters: dict[tuple[str, str], torch.Tensor] = {}
@@ -335,18 +365,7 @@ def fused_normal_eqs_handles() -> set[int]:
     """The driver handles of K1's CUDA kernel (its CUfunction in the
     current context and its CUkernel), by which the kernel nodes of a
     captured CUDA graph name it (pipeline/graphs.py counts them)."""
-    from . import _build
-
-    _launcher("fused_normal_eqs")
-    fn = _build.load("fused_normal_eqs").fused_normal_eqs_handles
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2
-    fn.restype = ctypes.c_int
-    func, kern = ctypes.c_void_p(), ctypes.c_void_p()
-    err = fn(ctypes.byref(func), ctypes.byref(kern))
-    if err != 0 or not func.value:
-        raise RuntimeError(f"fused_normal_eqs: no kernel handle (CUDA error "
-                           f"{err})")
-    return {h for h in (func.value, kern.value) if h}
+    return _handles("fused_normal_eqs", 1)
 
 
 def _hth_rows(pts_body, p_imu, normals, C, w, extrinsic: bool):
@@ -453,14 +472,144 @@ fused_hth.launches = 0
 def fused_hth_handles() -> set[int]:
     """The CUDA handles of K2's kernel, both instantiations (with
     and without the extrinsic columns): as fused_normal_eqs_handles."""
-    from . import _build
+    return _handles("fused_hth", 2)
 
-    _launcher("fused_hth")
-    fn = _build.load("fused_hth").fused_hth_handles
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2
-    fn.restype = ctypes.c_int
-    func, kern = (ctypes.c_void_p * 2)(), (ctypes.c_void_p * 2)()
-    err = fn(func, kern)
-    if err != 0 or not all(func):
-        raise RuntimeError(f"fused_hth: no kernel handle (CUDA error {err})")
-    return {h for h in (*func, *kern) if h}
+
+# The IMU stage (csrc/imu_stage.cu): the state's field sizes in State
+# order (pos rot off_r off_t vel bg ba grav), the error-state and noise
+# dimensions, and the most IMU rows a scan the kernel takes (its kMaxM)
+_IMU_STATE = (3, 4, 4, 3, 3, 3, 3, 3)
+_IMU_ERR, _IMU_NOISE, _IMU_MAX_M = 23, 12, 128
+
+
+def _imu_stage_args(x, P, acc, gyr, t, mask, Q, acc_norm, last_scan_end_t,
+                    scan_end_t, last_acc_w, last_gyr_b, pts, pt_t):
+    """The checks of imu_stage but the device type (raising on what the
+    kernel does not take), then the launch's arguments on the inputs'
+    device: (the pointer table, its ints after it: float64?, M, n and the
+    IMU rows' strides, the output buffer, pts_body)."""
+    scalars = (acc_norm, last_scan_end_t, scan_end_t)
+    if not all(isinstance(s, torch.Tensor) for s in scalars):
+        raise TypeError("imu_stage: acc_norm, last_scan_end_t and "
+                        "scan_end_t must be tensors")
+    floats = (*x, P, Q, acc, gyr, t, last_acc_w, last_gyr_b, pts, pt_t,
+              *scalars)
+    dev = pts.device
+    if any(a.device != dev for a in floats) or mask.device != dev:
+        raise ValueError("imu_stage: inputs on "
+                         + ", ".join(sorted({str(a.device) for a in
+                                             (*floats, mask)}))
+                         + "; all must be on one CUDA device")
+    dtype = pts.dtype
+    if dtype not in (torch.float32, torch.float64) or any(
+            a.dtype != dtype for a in floats):
+        raise TypeError("imu_stage: the kernel takes one floating type, "
+                        "float32 or float64, got "
+                        + ", ".join(sorted({str(a.dtype) for a in floats})))
+    if mask.dtype != torch.bool:
+        raise TypeError(f"imu_stage: mask must be bool, got {mask.dtype}")
+    M = t.shape[0] if t.dim() == 1 else -1
+    n = pts.shape[0] if pts.dim() == 2 else -1
+    if len(x) != len(_IMU_STATE) or any(
+            tuple(a.shape) != (k,) for a, k in zip(x, _IMU_STATE)):
+        raise ValueError("imu_stage: state shapes "
+                         + ", ".join(str(tuple(a.shape)) for a in x)
+                         + f", expected {_IMU_STATE} vectors")
+    if not 2 <= M <= _IMU_MAX_M or (
+            acc.shape, gyr.shape, mask.shape) != ((M, 3), (M, 3), (M,)):
+        raise ValueError(
+            f"imu_stage: IMU rows acc {tuple(acc.shape)}, gyr "
+            f"{tuple(gyr.shape)}, t {tuple(t.shape)}, mask "
+            f"{tuple(mask.shape)}; expected (M, 3), (M, 3), (M,), (M,) "
+            f"with 2 <= M <= {_IMU_MAX_M}")
+    if (P.shape != (_IMU_ERR, _IMU_ERR) or Q.shape != (_IMU_NOISE,) * 2
+            or last_acc_w.shape != (3,) or last_gyr_b.shape != (3,)):
+        raise ValueError(f"imu_stage: P {tuple(P.shape)}, Q "
+                         f"{tuple(Q.shape)}, last_acc_w / last_gyr_b "
+                         f"{tuple(last_acc_w.shape)} / "
+                         f"{tuple(last_gyr_b.shape)}; expected (23, 23), "
+                         "(12, 12), (3,), (3,)")
+    if any(s.numel() != 1 for s in scalars):
+        raise ValueError("imu_stage: acc_norm, last_scan_end_t and "
+                         "scan_end_t must be scalars")
+    if (n < 0 or n >= 2 ** 31 // 3 or pts.shape[1] != 3
+            or pt_t.shape != (n,)):
+        raise ValueError(f"imu_stage: pts {tuple(pts.shape)}, pt_t "
+                         f"{tuple(pt_t.shape)}; expected (n, 3), (n,)")
+    if not (all(a.is_contiguous() for a in (*x, P, Q, last_acc_w,
+                                            last_gyr_b, pts, pt_t))
+            and acc.stride(1) == 1 and gyr.stride(1) == 1):
+        raise ValueError("imu_stage: the state, P, Q, the points and the "
+                         "rows of acc and gyr must be contiguous")
+    out = torch.empty(_IMU_ERR ** 2 + sum(_IMU_STATE) + 17 * M, dtype=dtype,
+                      device=dev)
+    pts_body = torch.empty((n, 3), dtype=dtype, device=dev)
+    ptrs = (ctypes.c_void_p * 23)(
+        *(a.data_ptr() for a in x), P.data_ptr(), Q.data_ptr(),
+        acc_norm.data_ptr(), last_scan_end_t.data_ptr(),
+        scan_end_t.data_ptr(), last_acc_w.data_ptr(), last_gyr_b.data_ptr(),
+        acc.data_ptr(), gyr.data_ptr(), t.data_ptr(), mask.data_ptr(),
+        pts.data_ptr(), pt_t.data_ptr(), out.data_ptr(), pts_body.data_ptr())
+    ints = (int(dtype == torch.float64), M, n, acc.stride(0), gyr.stride(0),
+            t.stride(0), mask.stride(0))
+    return ptrs, ints, out, pts_body
+
+
+def _imu_stage_outputs(out, pts_body, M):
+    """imu_stage's results as views of the kernel's output buffer:
+    (x_fin, P_fin, poses, pts_body)."""
+    P_fin = out[:_IMU_ERR ** 2].view(_IMU_ERR, _IMU_ERR)
+    x_fin, o = [], _IMU_ERR ** 2
+    for k in _IMU_STATE:
+        x_fin.append(out[o:o + k])
+        o += k
+    poses = []
+    for k in (1, 3, 3, 4, 3, 3):  # t, pos, vel, rot, acc_w, gyr_b
+        v = out[o:o + k * M]
+        poses.append(v if k == 1 else v.view(M, k))
+        o += k * M
+    return tuple(x_fin), P_fin, tuple(poses), pts_body
+
+
+def imu_stage(x, P, acc, gyr, t, mask, Q, acc_norm, last_scan_end_t,
+              scan_end_t, last_acc_w, last_gyr_b, pts, pt_t):
+    """The IMU stage of one scan in one launch of csrc/imu_stage.cu:
+    core/imu.py's propagate (forward propagation over the scan's IMU
+    rows, the covariance, the final hop to scan_end_t) and undistort
+    (every row to the scan-end lidar frame) on CUDA tensors.
+
+    x: the 8 state tensors in State order (pos, rot, off_r, off_t, vel,
+    bg, ba, grav); P (23, 23); acc, gyr (M, 3) and t, mask (M,) the IMU
+    rows (2 <= M <= 128; rows of acc and gyr contiguous, any row stride;
+    mask bool); Q (12, 12); acc_norm, last_scan_end_t, scan_end_t one
+    value each; last_acc_w, last_gyr_b (3,); pts (n, 3) and pt_t (n,)
+    contiguous.  Every floating tensor one type, float32 or float64, all
+    on one CUDA device.  Returns (x_fin as 8 tensors in State order,
+    P_fin (23, 23), the poses (t (M,), pos, vel (M, 3), rot (M, 4),
+    acc_w, gyr_b (M, 3)), pts_body (n, 3)): views of one buffer the
+    wrapper allocates, and pts_body.  Counts its launches
+    (`imu_stage.launches`, and under a step's capture its device_counter).
+    Anything else raises; CPU tensors too (core/imu.py:stage runs the
+    plain version on them)."""
+    ptrs, ints, out, pts_body = _imu_stage_args(
+        x, P, acc, gyr, t, mask, Q, acc_norm, last_scan_end_t, scan_end_t,
+        last_acc_w, last_gyr_b, pts, pt_t)
+    dev = pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"imu_stage: inputs on {dev}; the kernel runs on "
+                         "a CUDA device (core/imu.py:stage runs the plain "
+                         "version on the CPU)")
+    err = _launch(_launcher("imu_stage"), dev, ptrs, *ints)
+    if err != 0:
+        raise RuntimeError(f"imu_stage: CUDA launch failed (error {err})")
+    _count(imu_stage, dev)
+    return _imu_stage_outputs(out, pts_body, ints[1])
+
+
+imu_stage.launches = 0
+
+
+def imu_stage_handles() -> set[int]:
+    """The CUDA handles of the IMU stage's kernel, both instances (float
+    and double): as fused_normal_eqs_handles."""
+    return _handles("imu_stage", 2)

@@ -276,10 +276,9 @@ def make_sharded_step_fn(cfg, mesh: Mesh):
     def step(x, P_, m, pts, pt_t, pt_valid, imu_b, last_end_rel,
              scan_end_t, acc_norm, cube_lo, cube_hi, last_acc_w,
              last_gyr_b, use_knn):
-        x_prop, P_prop, poses = imu.propagate(
+        x_prop, P_prop, poses, pts_body = imu.stage(
             x, P_, imu_b, Q, acc_norm, last_end_rel, scan_end_t,
-            last_acc_w, last_gyr_b)
-        pts_body = imu.undistort(x_prop, poses, pts, pt_t)
+            last_acc_w, last_gyr_b, pts, pt_t)
         ds_loc, dv_loc = voxel_downsample(pts_body, pt_valid,
                                           mp.surf_leaf_size, out_size=n_loc)
         ds_q = torch.clamp(torch.round(ds_loc / pos_scale), -32767,

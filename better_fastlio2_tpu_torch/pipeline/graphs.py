@@ -64,7 +64,7 @@ __all__ = ["StepGraph", "graph_steps", "KERNELS", "captured"]
 _KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
 # the hand-written kernels a step may launch, counted in the graph by the
 # handles of their device functions
-KERNELS = ("fused_normal_eqs", "fused_hth")
+KERNELS = ("fused_normal_eqs", "fused_hth", "imu_stage")
 # each kernel's wrapper calls made while a StepGraph captured (they launch
 # nothing then): the launches that ran are the wrappers' counts less
 # these, plus the replays' (ops/kernels.device_launches)
@@ -162,8 +162,9 @@ def _node_counts(graph: torch.cuda.CUDAGraph, bodies=()) -> dict:
     nodes' bodies (`bodies`, the body graphs its capture opened,
     utils.device.bodies) included: all nodes, by type, kernel nodes,
     conditional nodes (`conditional`), the nodes inside bodies
-    (`body_nodes`), K1's and K2's kernel nodes (`fused_normal_eqs`,
-    `fused_hth`: those whose function or kernel handle is the kernel's),
+    (`body_nodes`), K1's, K2's and the IMU stage's kernel nodes
+    (`fused_normal_eqs`, `fused_hth`, `imu_stage`: those whose function or
+    kernel handle is the kernel's),
     NCCL's (`nccl`: kernel nodes whose function name starts with "nccl",
     the collectives a mesh step captured; NCCL may also add memcpy nodes,
     counted under their type) and the step trace's (`trace`: the stamp
@@ -231,7 +232,8 @@ class StepGraph:
         self.static_info = None
         self.capture_s = None
         # {"nodes", "kernel_nodes", "conditional", "body_nodes",
-        #  "fused_normal_eqs", "fused_hth", ...}, bodies included
+        #  "fused_normal_eqs", "fused_hth", "imu_stage", ...}, bodies
+        #  included
         self.nodes = None
         self.captured_launches = None  # hand-written kernel launches
         self.captured_collectives = None  # mesh collectives at capture

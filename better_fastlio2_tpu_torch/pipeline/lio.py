@@ -337,10 +337,9 @@ def make_step_fn(cfg: LIOConfig, device: torch.device,
 
         # ---- IMU forward propagation + backward undistortion -------------
         with span("lio.imu"):
-            x_prop, P_prop, poses = imu.propagate(
+            x_prop, P_prop, poses, pts_body = imu.stage(
                 ls.x, ls.P, imu_b, Q, acc_norm, last_end_rel, scan_end_t,
-                ls.last_acc_w, ls.last_gyr_b)
-            pts_body = imu.undistort(x_prop, poses, pts, pt_t)
+                ls.last_acc_w, ls.last_gyr_b, pts, pt_t)
         if mesh is not None and not local_ds:
             # the full undistorted batch from the ranks' shards (rank
             # order is row order; exact rows)

@@ -27,6 +27,15 @@ Phases (any failure exits non-zero and prints no result line):
   3. k2      — the same for K2 (fused_hth) in both modes, plus an all-false
                mask (exactly 0), and the library call hx^T hx + hx^T h on
                prebuilt (N, 12) rows;
+     imu     — the IMU stage kernel (csrc/imu_stage.cu) against its plain
+               version (core/imu.py:propagate + undistort) on the card at
+               both cells' shapes (M = 16 and 32 IMU rows, n = 32768
+               points; valid prefixes of M, 1, 2 and M - 1 rows) within
+               compare_imu_stage's tolerance, two runs bit-identical; its
+               `ms`, `device_us`, the plain version's `plain_ms` and
+               `plain_device_us` (one call replayed from a graph) and the
+               bound at each cell's shape; every per-scan path (phases
+               4-8) must run it once a ticked scan;
   4. main    — run LIOPipeline, the port's entry point, over 240 scans of
                the room benchmark sequence at the full bench shapes on the
                fused single-association path (slice 1), count the kernel
@@ -537,6 +546,174 @@ def compare_k2(ins, extrinsic: bool, HTH_k, HTh_k) -> dict:
             "n_valid": int(ins[5].sum())}
 
 
+IMU_CELLS = {"hdl64_street_scan": (16, 32768), "vlp16_room_scan": (32, 32768)}
+# gyr_cov, acc_cov, b_gyr_cov, b_acc_cov of lio_bench/configs/<config>.json
+IMU_COVS = {"hdl64_street_scan": (0.0015636343949698187, 0.003993957088823881,
+                                  3.564031869636761e-05,
+                                  6.435665935353257e-05),
+            "vlp16_room_scan": (0.1, 0.1, 1e-4, 1e-4)}
+
+
+def _unit(v):
+    return v / np.linalg.norm(v)
+
+
+def imu_stage_case(M: int, n: int, seed: int, n_valid: int | None = None,
+                   turn: float = 0.5, last_end_after_first: bool = True,
+                   covs=(0.1, 0.1, 1e-4, 1e-4), full_q: bool = False,
+                   dtype=None):
+    """Seeded inputs of one scan's IMU stage, as core/imu.py:stage takes
+    them: a dict of CPU tensors (float64 unless `dtype`).  M IMU rows of
+    which the first `n_valid` (default M) are valid, spread so that the
+    valid ones span the scan (0.1 s; sample 0 before its begin, the last
+    before its end, so the final hop is not empty), the rest padding (t =
+    inf, zero rates); a turn of `turn` rad/s about the body z axis at
+    ~3 m/s; last_scan_end_t after sample 0 (`last_end_after_first`) or
+    before it; n points within ~60 m timed from before the first pose to
+    after the scan end, some at exactly a pose's time; a random SPD P;
+    Q from `covs` (build_Q's diagonal) or, `full_q`, that plus a random
+    SPD part (the kernel takes any Q: a full one shows every block of
+    the noise map Fw in Fw Q Fw^T)."""
+    import torch
+
+    from better_fastlio2_tpu_torch.core import imu, state
+
+    rng = np.random.default_rng(seed)
+    n_valid = M if n_valid is None else n_valid
+    h = 0.1 / max(n_valid - 1, 1)
+    t = np.full(M, np.inf)
+    t[:n_valid] = h * (np.arange(n_valid) - 0.3)
+    acc = np.zeros((M, 3))
+    gyr = np.zeros((M, 3))
+    acc[:n_valid] = (np.array([0.4, -0.2, 9.75])
+                     + rng.normal(size=(n_valid, 3)) * 0.05)
+    gyr[:n_valid] = (np.array([0.01, -0.02, turn])
+                     + rng.normal(size=(n_valid, 3)) * 0.01)
+    mask = np.arange(M) < n_valid
+    last_end = t[0] + (0.5 * h if last_end_after_first else -0.5 * h)
+    q = _unit(rng.normal(size=4))
+    off_r = _unit(np.array([1.0, 0.01, -0.02, 0.015]))
+    grav = _unit(np.array([0.02, -0.03, -1.0])) * 9.809
+    A = rng.normal(size=(23, 23)) * 0.01
+    P = (state.init_P(torch.float64).numpy() + A @ A.T)
+    Q = imu.build_Q(*covs, dtype=torch.float64).numpy()
+    if full_q:
+        B = rng.normal(size=(12, 12)) * 0.01
+        Q = Q + B @ B.T
+    pts = rng.uniform(-60.0, 60.0, size=(n, 3))
+    pt_t = rng.uniform(-0.02, 0.12, size=n)
+    ties = rng.integers(0, max(n_valid, 1), size=min(n, 8))
+    pt_t[:len(ties)] = t[ties]
+    case = dict(
+        x=state.State(pos=rng.normal(size=3), rot=q, off_r=off_r,
+                      off_t=np.array([0.1, -0.05, 0.2]),
+                      vel=np.array([3.0, 0.2, 0.05]),
+                      bg=rng.normal(size=3) * 1e-3,
+                      ba=rng.normal(size=3) * 1e-2, grav=grav),
+        P=P, acc=acc, gyr=gyr, t=t, mask=mask,
+        Q=Q,
+        acc_norm=np.array(9.79), last_scan_end_t=np.array(last_end),
+        scan_end_t=np.array(0.1), last_acc_w=rng.normal(size=3) * 0.1,
+        last_gyr_b=rng.normal(size=3) * 0.1, pts=pts, pt_t=pt_t)
+    case = {k: (state.State(*map(torch.as_tensor, v))
+                if isinstance(v, state.State) else torch.as_tensor(v))
+            for k, v in case.items()}
+    return imu_stage_on(case, dtype=dtype)
+
+
+def imu_stage_on(case, device=None, dtype=None) -> dict:
+    """The case's tensors on `device`, its floating ones as `dtype`."""
+    import torch
+
+    def mv(v):
+        return v.to(device=device, dtype=None if v.dtype == torch.bool
+                    else dtype)
+
+    return {k: (type(v)(*map(mv, v)) if isinstance(v, tuple) else mv(v))
+            for k, v in case.items()}
+
+
+def imu_stage_call(c):
+    """core/imu.py:stage on the case's tensors: (x_fin, P_fin, poses,
+    pts_body); the kernel where they are on the card."""
+    from better_fastlio2_tpu_torch.core import imu
+
+    return imu.stage(c["x"], c["P"], imu.ImuBatch(c["acc"], c["gyr"],
+                                                  c["t"], c["mask"]),
+                     c["Q"], c["acc_norm"], c["last_scan_end_t"],
+                     c["scan_end_t"], c["last_acc_w"], c["last_gyr_b"],
+                     c["pts"], c["pt_t"])
+
+
+def imu_stage_plain(c):
+    """The plain version (core/imu.py:propagate, then undistort) on the
+    case's tensors, wherever they are."""
+    from better_fastlio2_tpu_torch.core import imu
+
+    b = imu.ImuBatch(c["acc"], c["gyr"], c["t"], c["mask"])
+    x, P, poses = imu.propagate(c["x"], c["P"], b, c["Q"], c["acc_norm"],
+                                c["last_scan_end_t"], c["scan_end_t"],
+                                c["last_acc_w"], c["last_gyr_b"])
+    return x, P, poses, imu.undistort(x, poses, c["pts"], c["pt_t"])
+
+
+def imu_stage_tensors(out) -> list:
+    """Every tensor of one stage result, in order."""
+    x, P, poses, pts = out
+    return [*x, P, *poses, pts]
+
+
+def imu_stage_arrays(out) -> dict:
+    """The named float64 CPU arrays of one stage result."""
+    x, P, poses, pts = out
+    named = {f"x.{k}": v for k, v in x._asdict().items()}
+    named.update({f"poses.{k}": v for k, v in poses._asdict().items()})
+    named.update(P=P, pts_body=pts)
+    return {k: v.detach().double().cpu() for k, v in named.items()}
+
+
+def compare_imu_stage(got, plain, exact64=None, rtol64: float = 1e-10,
+                      k32: float = 4.0) -> dict:
+    """Hold one IMU stage result `got` against the plain version's
+    `plain` on the same inputs, array by array; raises AssertionError
+    beyond the tolerance.  Pose times are held equal (a selection, no
+    arithmetic).
+
+    float64 (`exact64` None): every array within rtol64 of its largest
+    entry (at least 1): the two compute the same formulas and differ by
+    the summation order of their sums and products at ~1e-16 a step.
+
+    float32: `exact64` is the plain version's float64 result on the
+    same (f32-representable) inputs.  Each array within k32 times the
+    plain f32 version's own distance from it, plus 8 float32 epsilons of
+    the array's largest entry: two f32 computations of one function that
+    round in other places (another device's or library's orders) each
+    lie within their rounding error of the exact result.
+    Returns each array's largest difference and its tolerance."""
+    import torch
+
+    g, p = imu_stage_arrays(got), imu_stage_arrays(plain)
+    e = imu_stage_arrays(exact64) if exact64 is not None else None
+    if not torch.equal(g["poses.t"], p["poses.t"]):
+        raise AssertionError("pose times differ")
+    rep = {}
+    for k in g:
+        if k == "poses.t":
+            continue
+        scale = max(1.0, float(p[k].abs().max()) if p[k].numel() else 1.0)
+        err = float((g[k] - p[k]).abs().max()) if p[k].numel() else 0.0
+        if e is None:
+            tol = rtol64 * scale
+        else:
+            own = float((p[k] - e[k]).abs().max()) if p[k].numel() else 0.0
+            tol = k32 * own + 8 * float(np.finfo(np.float32).eps) * scale
+        if not err <= tol:
+            raise AssertionError(f"{k}: max difference {err:.3e} over its "
+                                 f"tolerance {tol:.3e}")
+        rep[k] = (err, tol)
+    return rep
+
+
 def phase_build() -> None:
     from better_fastlio2_tpu_torch.ops import _build, kernels
     from better_fastlio2_tpu_torch.utils import device
@@ -553,12 +730,12 @@ def phase_build() -> None:
         spilled = [r for r in recs if r["spill_stores"] or r["spill_loads"]]
         if spilled:
             fail(f"{name}.cu spills registers: {spilled}")
-    for name in KERNELS:
-        kernels._launcher(name)  # load and pick the cluster size
+    for name in (*KERNELS, "imu_stage"):
+        kernels._launcher(name)  # load; K1 / K2 pick the cluster size
     device._set_condition()  # the conditional nodes' condition kernel
     print(json.dumps({"phase": "build", "sources": _build.SOURCES,
                       "compiled": sorted(reports), "seconds": round(dt, 3),
-                      "ptxas": ptxas, "clusters": kernels.cluster_info}),
+                      "ptxas": ptxas, "setup": kernels.setup_info}),
           flush=True)
 
 
@@ -673,6 +850,85 @@ def phase_k2(floor_us: float) -> dict:
     return out
 
 
+IMU_TIMED_VALID = 11  # valid IMU rows of a 10 Hz scan at 100 Hz
+IMU_FLOPS_PER_STEP = 2 * (2 * 23 ** 3 + 23 * 12 * 12 + 23 * 23 * 12)
+IMU_FLOPS_PER_ROW = 150  # bracket, rotation increment, four rotations
+IMU_BYTES_PER_ROW = 3 * 4 + 4 + 3 * 4  # point and time in, point out
+
+
+def phase_imu(floor_us: float) -> dict:
+    """The IMU stage kernel (csrc/imu_stage.cu) on the card: held against
+    its plain version at both cells' shapes (valid prefixes of M, 1, 2,
+    M - 1 rows) within compare_imu_stage's tolerance (fails beyond it),
+    the values that differ from the plain version's at all counted by
+    array (`values_differing`: the kernel takes the plain version's
+    rounding orders on the card, so none are expected),
+    two runs bit-identical, and timed at each cell's shape with 11 valid
+    rows: `ms` (the wrapper's wall through core/imu.py:stage, events),
+    `device_us` (graph replay of 100 calls), the plain version's
+    `plain_ms` and `plain_device_us` (one call in a replayed graph: what
+    a scan's graph spent on the stage before the kernel), the bound
+    (bytes of the rows, operations of the covariance chain and the rows)
+    beside them."""
+    import torch
+
+    checks = []
+    for cell, (M, n) in IMU_CELLS.items():
+        for n_valid in (M, 1, 2, M - 1):
+            c = imu_stage_case(M, n, seed=M + n_valid, n_valid=n_valid,
+                               covs=IMU_COVS[cell],
+                               last_end_after_first=n_valid % 2 == 0,
+                               full_q=n_valid == M, dtype=torch.float32)
+            d = imu_stage_on(c, "cuda")
+            got = imu_stage_call(d)
+            again = imu_stage_call(d)
+            exact = imu_stage_call(imu_stage_on(c, dtype=torch.float64))
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(
+                    imu_stage_tensors(got), imu_stage_tensors(again))):
+                fail(f"imu_stage: two runs differ ({cell}, {n_valid} "
+                     "valid rows)")
+            plain = imu_stage_plain(d)
+            try:
+                rep = compare_imu_stage(got, plain, exact)
+            except AssertionError as e:
+                fail(f"imu_stage disagrees with the plain version ({cell},"
+                     f" {n_valid} valid rows): {e}")
+            differ = {k: int((u != v).sum()) for (k, u), v in zip(
+                imu_stage_arrays(got).items(),
+                imu_stage_arrays(plain).values())}
+            checks.append({
+                "cell": cell, "M": M, "n": n, "n_valid": n_valid,
+                "values_differing": {k: v for k, v in differ.items() if v},
+                "values": sum(a.numel() for a in imu_stage_arrays(
+                    got).values()),
+                "max_err_over_tol": max(e / t for e, t in rep.values()),
+                "pts_body_err_m": rep["pts_body"][0],
+                "P_err": rep["P"][0], "pos_err_m": rep["x.pos"][0]})
+    timing = {}
+    for cell, (M, n) in IMU_CELLS.items():
+        d = imu_stage_on(imu_stage_case(
+            M, n, seed=1, n_valid=IMU_TIMED_VALID, covs=IMU_COVS[cell],
+            dtype=torch.float32), "cuda")
+        call = functools.partial(imu_stage_call, d)
+        plain = functools.partial(imu_stage_plain, d)
+        bytes_moved = IMU_BYTES_PER_ROW * n + 4 * (23 * 23 * 2 + 144
+                                                   + 17 * M + 8 * M)
+        bound_ms, bound_by = bound(bytes_moved, IMU_FLOPS_PER_STEP * M
+                                   + IMU_FLOPS_PER_ROW * n)
+        timing[cell] = {
+            "M": M, "n": n, "ms": time_ms(call), "device_us": graph_us(call),
+            "plain_ms": time_ms(plain),
+            "plain_device_us": graph_us(plain, calls=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved}
+    out = {"phase": "imu", "checks": checks, "timing": timing,
+           "timed_valid_rows": IMU_TIMED_VALID, "launch_floor_us": floor_us,
+           "max_err_over_tol": max(c["max_err_over_tol"] for c in checks)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def k1_library(soa, params):
     """K1's library yardstick: one matmul r8^T r8 on the prebuilt gated
     (N, 8) rows (it leaves out the transform, the gate and the count)."""
@@ -714,7 +970,8 @@ def phase_library_graph() -> dict:
 
 def phase_one_launch() -> dict:
     """One call of each kernel at the main path's N runs exactly one
-    device kernel, and it is that kernel."""
+    device kernel, and it is that kernel (the IMU stage through
+    core/imu.py:stage at the cells' n = 32768)."""
     import torch
 
     from better_fastlio2_tpu_torch.ops import kernels
@@ -729,6 +986,9 @@ def phase_one_launch() -> dict:
             kernels.fused_hth, *ins, extrinsic=False)),
         "fused_hth_ext": ("hth_cluster_kernel", functools.partial(
             kernels.fused_hth, *ins, extrinsic=True)),
+        "imu_stage": ("imu_stage_kernel", functools.partial(
+            imu_stage_call, imu_stage_on(imu_stage_case(
+                32, 2 * n, seed=1, dtype=torch.float32), "cuda"))),
     }
     seen = {}
     for name, (kernel, fn) in calls.items():
@@ -838,7 +1098,7 @@ def reset_launches() -> None:
     from better_fastlio2_tpu_torch.ops import kernels
     from better_fastlio2_tpu_torch.pipeline import graphs
 
-    for k in KERNELS:
+    for k in graphs.KERNELS:
         getattr(kernels, k).launches = 0
         graphs.captured[k] = 0
     kernels.reset_device_launches()
@@ -855,7 +1115,7 @@ def launches_ran() -> dict:
     from better_fastlio2_tpu_torch.pipeline import graphs
 
     return {k: getattr(kernels, k).launches - graphs.captured[k]
-            + kernels.device_launches(k) for k in KERNELS}
+            + kernels.device_launches(k) for k in graphs.KERNELS}
 
 
 def implied_launches(kernel: str, iters: int, refreshed: bool) -> int:
@@ -1170,6 +1430,10 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                 torch.cuda.set_sync_debug_mode("default")
     totals = launches_ran()
     device_ran = {k: kernels.device_launches(k) for k in KERNELS}
+    imu_ran = totals["imu_stage"]
+    if cuda and imu_ran != len(outs):
+        fail(f"imu_stage: {imu_ran} launches ran for {len(outs)} scans "
+             "ticked (one a scan expected)")
     widths = probe.finish()
     if cuda and device_ran[kernel] != implied[kernel]:
         fail(f"{kernel}: the replays ran {device_ran[kernel]} launches "
@@ -1188,6 +1452,7 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
                  "body_nodes": gr.nodes["body_nodes"],
                  "fused_normal_eqs_nodes": gr.nodes["fused_normal_eqs"],
                  "fused_hth_nodes": gr.nodes["fused_hth"],
+                 "imu_stage_nodes": gr.nodes["imu_stage"],
                  "by_type": gr.nodes["by_type"]}
     dmom_built = pipe.ls.map.dmom is not None
     del pipe
@@ -1219,6 +1484,7 @@ def run_main_path(cfg, groups, kernel: str = "fused_normal_eqs",
             "graph_nodes": probe.graph_nodes, "prefix_equal": prefix,
             "smi": smi.collect() if smi is not None else [],
             "outs": outs, "totals": totals, "checks": checks,
+            "imu_stage_launches": imu_ran,
             "peak_bytes": peak, "peak_reserved_bytes": reserved,
             "dmom_built": dmom_built}
 
@@ -1564,7 +1830,9 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
     if res["cuda"] and (starved or res["totals"][kernel] < 1):
         fail(f"{name}: {kernel} launched {res['totals'][kernel]} times; "
              f"scans without a launch: {starved[:10]}")
-    others = {k: v for k, v in res["totals"].items() if k != kernel}
+    # the IMU stage runs on every path (checked once a scan in run_main_path)
+    others = {k: v for k, v in res["totals"].items()
+              if k not in (kernel, "imu_stage")}
     if any(others.values()):
         fail(f"{name}: the path launched kernels it does not run: {others}")
     if len(res["checks"]) < len(CHECK_SCANS):
@@ -1610,6 +1878,8 @@ def summarize(name: str, res: dict, kernel: str, gate_end: float,
         # the replayed scans' passes and refreshes imply (equal)
         "launches_replayed_device": res["device_launches"][kernel],
         "launches_replayed_implied": res["implied_launches"][kernel],
+        # the IMU stage kernel: one launch a ticked scan (checked)
+        "imu_stage_launches": res["imu_stage_launches"],
         "passes_per_scan_mean": float(np.mean(iters[1:])),
         "refresh_fires_per_scan_mean": float(np.mean(fires[1:])),
         "conditional_nodes_per_tick": (res["graph"] or {}).get(
@@ -3777,6 +4047,7 @@ def main() -> None:
     if_node_cost(floor_us)
     k1 = phase_kernels(floor_us)
     k2 = phase_k2(floor_us)
+    imu_k = phase_imu(floor_us)
     t0 = time.perf_counter()
     groups = make_bench_sequence("room", N_SCANS)
     print(json.dumps({"phase": "sequence", "scans": N_SCANS,
@@ -3855,6 +4126,9 @@ def main() -> None:
                  + cli["online_relo"]["k2_checks"]
                  + two["sharded_step"]["k2_checks"])
     k2_t = k2["timing"]["ext"]
+    imu_by_phase = {p["phase"]: p["imu_stage_launches"]
+                    for p in (main_out, row, row_ext, bench_room,
+                              bench_outdoor)}
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_normal_eqs",
@@ -3898,6 +4172,15 @@ def main() -> None:
         "bound_by": k2_t["bound_by"],
         "library_ms": k2_t["library_ms"],
         "library_device_us": lib["k2_library_device_us"]["ext"],
+        "launch_floor_us": floor_us,
+    }, {
+        "name": "imu_stage",
+        "route": "cuda",
+        "source": "better_fastlio2_tpu_torch/csrc/imu_stage.cu",
+        "replaces": None,  # the port's own: the JAX package's is plain XLA
+        "launches_by_phase": imu_by_phase,
+        "max_err_over_tol": imu_k["max_err_over_tol"],
+        "timing": imu_k["timing"],
         "launch_floor_us": floor_us,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

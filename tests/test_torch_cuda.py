@@ -79,6 +79,16 @@ refresh and width imply (K1 once a pass plus once for a refresh's
 re-solve, one width a solve; K2 once a pass); a nested IF node runs its
 body only when both predicates hold.
 
+The IMU stage kernel (csrc/imu_stage.cu) against the plain version
+(core/imu.py:propagate + undistort) on the card: f32 at the cells'
+shapes and a small one within chip_smoke.compare_imu_stage (4x the
+plain f32 version's own distance from f64, plus 8 f32 epsilons of each
+array's scale), and bit for bit at the cells' shapes (the kernel takes
+the plain version's rounding orders on the card); f64 within 1e-10 of
+each array's scale; two runs and a graph replay give the eager bits;
+strided IMU rows give the bits of contiguous ones; one device kernel a
+call and, on the per-scan path, one launch a scan.
+
 The step's trace (utils/trace.py): with tracing off the captured graph
 holds no trace node and the same nodes by type after a traced pipeline;
 traced, the replays equal the traced eager ticks in every info value,
@@ -91,7 +101,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DYN_GAP, _yaw, asym_scene, device_kernels,
+from chip_smoke import (DYN_GAP, _yaw, asym_scene, compare_imu_stage,
+                        device_kernels, imu_stage_call, imu_stage_case,
+                        imu_stage_on, imu_stage_plain, imu_stage_tensors,
                         offset_view, perception_outputs, random_hth)
 
 from better_fastlio2_tpu_torch.config import (IkdtreeConfig, LIOConfig,
@@ -1495,3 +1507,122 @@ def test_cuda_trace_keeps_one_sync_a_scan(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert p.flush()["trace"].scan == 12
+
+
+# ---- the IMU stage kernel (csrc/imu_stage.cu) ------------------------------
+
+def _imu_case(cuda, M, n, n_valid=None, seed=1, after_first=True,
+              dtype=torch.float32, full_q=False):
+    c = imu_stage_case(M, n, seed, n_valid=n_valid,
+                       last_end_after_first=after_first, full_q=full_q,
+                       dtype=dtype)
+    return c, imu_stage_on(c, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n,n_valid,after_first", [
+    (16, 32768, None, True), (16, 32768, 1, False), (16, 32768, 2, True),
+    (16, 32768, 15, False), (32, 32768, None, False), (32, 32768, 1, True),
+    (32, 32768, 2, False), (32, 32768, 31, True), (8, 100, None, True)])
+def test_cuda_imu_stage_matches_plain(cuda, M, n, n_valid, after_first):
+    """The kernel (core/imu.py:stage on CUDA tensors) against the plain
+    version on the card, f32 at the cells' shapes (M = 16 street, 32
+    handheld; n = 32768) and a small one: valid prefixes of 1, 2, M - 1
+    and M samples, last_scan_end_t after or before sample 0, points timed
+    before the first pose, after the last and at a pose's time, a 0.5
+    rad/s turn.  Tolerance (chip_smoke.compare_imu_stage): each array
+    within 4x the plain f32 version's own distance from the plain f64
+    version on the same inputs, plus 8 f32 epsilons of its scale (the
+    bits themselves: test_cuda_imu_stage_equals_plain_bit_for_bit)."""
+    c, d = _imu_case(cuda, M, n, n_valid, seed=M + n_valid if n_valid
+                     else M, after_first=after_first, full_q=after_first)
+    before = tk.imu_stage.launches
+    got = imu_stage_call(d)
+    torch.cuda.synchronize()
+    assert tk.imu_stage.launches == before + 1
+    compare_imu_stage(got, imu_stage_plain(d),
+                      imu_stage_call(imu_stage_on(c, dtype=torch.float64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n_valid", [(16, 11), (16, None), (32, 11),
+                                       (32, 1)])
+def test_cuda_imu_stage_equals_plain_bit_for_bit(cuda, M, n_valid):
+    """On the card the kernel rounds where the plain version does
+    (csrc/imu_stage.cu: no contraction of elementwise products and sums,
+    PyTorch's reciprocal for a division by a constant, torch.sum's orders
+    and cuBLAS's order for each product, as PyTorch 2.11 runs them on the
+    H100): every output equals the plain version's bit for bit."""
+    _, d = _imu_case(cuda, M, 32768, n_valid, seed=M + 7, full_q=True)
+    for u, v in zip(imu_stage_tensors(imu_stage_call(d)),
+                    imu_stage_tensors(imu_stage_plain(d))):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [16, 32])
+def test_cuda_imu_stage_f64_matches_plain(cuda, M):
+    """The double instance against the plain version in f64 on the card:
+    the same formulas, within 1e-10 of each array's scale."""
+    _, d = _imu_case(cuda, M, 32768, seed=3, dtype=torch.float64,
+                     full_q=True)
+    compare_imu_stage(imu_stage_call(d), imu_stage_plain(d))
+
+
+@pytest.mark.cuda
+def test_cuda_imu_stage_is_deterministic_and_takes_strided_rows(cuda):
+    """Two runs give the same bits (no atomics); IMU rows inside the
+    quantized window's (M, 8) meta rows (row stride 8) give the bits of
+    contiguous rows."""
+    _, d = _imu_case(cuda, 32, 32768, n_valid=12, seed=4)
+    a, b = imu_stage_call(d), imu_stage_call(d)
+    meta = torch.zeros(32, 8, device=cuda)
+    meta[:, 0:3], meta[:, 3:6], meta[:, 6] = d["acc"], d["gyr"], d["t"]
+    s = dict(d, acc=meta[:, 0:3], gyr=meta[:, 3:6], t=meta[:, 6])
+    c = imu_stage_call(s)
+    for u, v, w in zip(imu_stage_tensors(a), imu_stage_tensors(b),
+                       imu_stage_tensors(c)):
+        assert torch.equal(u, v) and torch.equal(u, w)
+
+
+@pytest.mark.cuda
+def test_cuda_imu_stage_graph_replay_matches_eager(cuda):
+    """One call captured in a CUDA graph is one kernel node, the IMU
+    stage's (the wrapper allocates its outputs from the graph's pool; the
+    kernel allocates nothing), the capture counts one launch, and the
+    replay gives the eager call's bits."""
+    _, d = _imu_case(cuda, 16, 32768, seed=5)
+    eager = imu_stage_call(d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        imu_stage_call(d)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = tk.imu_stage.launches
+    with torch.cuda.graph(graph):
+        captured = imu_stage_call(d)
+    graph.instantiate()
+    assert tk.imu_stage.launches == before + 1
+    nodes = graphs._node_counts(graph)
+    assert nodes["nodes"] == nodes["imu_stage"] == 1, nodes
+    flat = imu_stage_tensors(captured)
+    for t in flat:
+        t.fill_(float("nan"))  # the replay, not the capture, writes them
+    graph.replay()
+    torch.cuda.synchronize()
+    for u, v in zip(flat, imu_stage_tensors(eager)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_cuda_imu_stage_one_launch_a_scan(cuda):
+    """On the per-scan main path the IMU stage is one kernel node of the
+    replayed graph, and its device counter reads one launch a scan."""
+    k0 = _ran("imu_stage")
+    p = LIOPipeline(_row_cfg())
+    outs = [p.process_scan(*_args(g)) for g in _groups()]
+    ticks = sum(o is not None for o in outs)
+    assert ticks >= 10 and p.graph is not None
+    assert p.graph.nodes["imu_stage"] == 1
+    assert _ran("imu_stage") - k0 == ticks

@@ -47,8 +47,8 @@ power limit, one line on standard error per traced call of `replay`
                          drift, clock_drift_ppm)
     clock_offset_error_us  the program's own device-to-host offset (from
                          each scan's bracket) less that one offset
-    kernels, top_kernels K1 / K2 calls and us a call; the 15 largest
-                         device-time entries by name
+    kernels, top_kernels K1 / K2 / IMU stage calls and us a call; the 15
+                         largest device-time entries by name
   replay                 the unprofiled calls, from their trace records:
     ms                   mean ms of the call's wall, the device's lio.scan
                          and its stages (lio.imu, lio.fov_crop,
@@ -67,13 +67,17 @@ power limit, one line on standard error per traced call of `replay`
     if_bodies_taken_per_scan  by IF node name, and `total`
     map_claims_per_scan, map_probe_rounds_per_scan, passes_per_scan,
     refresh_fires_per_scan
+    kernel_launches_per_scan  each hand-written kernel's launches that ran
+                         over the calls (device counters): the IMU stage
+                         one a scan
   syncs_per_scan         over SYNC_SCANS further calls: `port_reads` (the
                          port's reads through utils.device), `torch`
                          (every sync torch reports under
                          set_sync_debug_mode("warn")) and `sites`, those
                          by the port's line that made them
-  graph                  the steady graph's nodes (by type, K1 / K2,
-                         conditional, their bodies, trace) and capture time
+  graph                  the steady graph's nodes (by type, K1 / K2 / the
+                         IMU stage, conditional, their bodies, trace) and
+                         capture time
   overhead               with --overhead S (and --cell): an untraced
                          pipeline and a traced one fed the same scans in
                          alternating blocks of 64 calls, S seconds each:
@@ -257,7 +261,8 @@ def profile_stretch(feed, groups, traced: bool) -> dict:
         rec[1] += 1
     kern = {}
     for name, kernel in (("fused_normal_eqs", "neq_cluster_kernel"),
-                         ("fused_hth", "hth_cluster_kernel")):
+                         ("fused_hth", "hth_cluster_kernel"),
+                         ("imu_stage", "imu_stage_kernel")):
         rows = [v for k, v in by_name.items() if kernel in k]
         calls = sum(v[1] for v in rows)
         kern[name] = {"calls_per_scan": calls / n,
@@ -421,8 +426,12 @@ def per_scan(pipe, group, warmup: int, scans: int, calls: int,
     out["stretch"] = profile_stretch(feed, [group(i) for i in
                                             range(k, k + scans)], True)
     k += scans
+    ran0 = cs.launches_ran()
     out["replay"] = replay_calls(feed, [group(i) for i in
                                         range(k, k + calls)])
+    out["replay"]["kernel_launches_per_scan"] = {
+        name: (v - ran0[name]) / max(calls, 1)
+        for name, v in cs.launches_ran().items()}
     k += calls
     out["syncs_per_scan"] = count_syncs(
         feed, [group(i) for i in range(k, k + SYNC_SCANS)])
