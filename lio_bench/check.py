@@ -21,11 +21,14 @@ covariance's difference over the reference's largest entry) and
 two disagree: places used, or a stored point more than MAP_TOL apart);
 over the window's steps the medians of the position, attitude and
 covariance gaps, and the map gap of all their changed voxels together;
-and `report_gap`, the largest difference between a
-reported pose and the pose in the state the step left (exactly 0 for a
-sound program).  A cell compares the numbers its limits file names.
-The reference runs in float64; the control (control.py) puts the same
-reference in the program's place at TF32 (ref/lio.py).
+the medians of the gaps between the lidar-IMU extrinsic the step left
+(attitude `step_ext_rot_gap_rad`, translation `step_ext_pos_gap_m`),
+which moves where the configuration estimates it; and `report_gap`, the
+largest difference between a reported pose and the pose in the state
+the step left (exactly 0 for a sound program).  A cell compares the
+numbers its limits file names.  The reference runs in float64; the
+control (control.py) puts the same reference in the program's place at
+TF32 (ref/lio.py).
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ import math
 import numpy as np
 import torch
 
+from .ref import geom
 from .ref.lio import RefLIO, identity, map_of, tf32
 from .ref.pointmap import PointMap
 
 MAP_TOL = 1e-3  # metres between two stored points that agree
 NUMBERS = ("start_cov_gap", "start_map_gap", "step_pos_gap_m",
-           "step_rot_gap_rad", "step_cov_gap", "step_map_gap", "report_gap")
+           "step_rot_gap_rad", "step_cov_gap", "step_map_gap",
+           "step_ext_rot_gap_rad", "step_ext_pos_gap_m", "report_gap")
 
 
 def quat_angle(q1, q2) -> float:
@@ -94,7 +99,8 @@ def reference_answers(cfg: dict, traffic, first_group: int, steps: list,
     """The reference's answers for each step ({"scans": (j0, j1),
     "before": the program's snapshot before scan j0, or None for the
     start}): the poses of those scans, the map before them and the state
-    after them.  control: float32 rounded to TF32 (and TF32 products on
+    after them (covariance, map, and the extrinsic as a quaternion and a
+    translation).  control: float32 rounded to TF32 (and TF32 products on
     the card) instead of float64."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = control
@@ -133,9 +139,15 @@ def _answers(cfg, traffic, first_group, steps, device, control) -> dict:
             poses.append(r.pose().numpy())
         out.append({"scans": (j0, j1), "poses": np.stack(poses),
                     "before_map": before, "P": r.P, "map": r.map,
+                    "ext": _ext(geom.quat_of(r.x.R_il), r.x.t_il),
                     "start": st["before"] is None})
         del r
     return {"acc_norm": acc_norm, "steps": out}
+
+
+def _ext(q, t) -> np.ndarray:
+    """(7,) float64: the extrinsic's quaternion and translation."""
+    return torch.cat([q.double().cpu(), t.double().cpu()]).numpy()
 
 
 def program_answers(traj: np.ndarray, steps: list, cfg: dict) -> dict:
@@ -149,6 +161,7 @@ def program_answers(traj: np.ndarray, steps: list, cfg: dict) -> dict:
                                a["rot"].double().cpu().numpy()])
         out.append({"poses": traj[st["scans"][0]:st["scans"][1]],
                     "left": left, "P": a["P"],
+                    "ext": _ext(a["off_r"], a["off_t"]),
                     "map": map_of(a, kd["filter_size_map_min"],
                                   sh.get("map_bucket", 4), torch.float64,
                                   "cpu")})
@@ -160,7 +173,7 @@ def numbers(answers: dict, ref: dict, detail: dict | None = None
     """The numbers of `answers` (program_answers, or the control's
     reference_answers) against the reference's; `detail`, when given,
     receives every scan's and step's gaps."""
-    pos, rot, cov, mp, rep = [], [], [], [], []
+    pos, rot, cov, mp, rep, ext_rot, ext_pos = [], [], [], [], [], [], []
     start_cov = start_map = 0.0
     for a, r in zip(answers["steps"], ref["steps"]):
         pa = np.asarray(a["poses"], np.float64)
@@ -176,16 +189,20 @@ def numbers(answers: dict, ref: dict, detail: dict | None = None
         rot += [quat_angle(x[3:7], y[3:7]) for x, y in zip(pa, r["poses"])]
         cov.append(c)
         mp.append(m)
+        ext_rot.append(quat_angle(a["ext"][:4], r["ext"][:4]))
+        ext_pos.append(float(np.linalg.norm(a["ext"][4:] - r["ext"][4:])))
     if detail is not None:
         detail.update(start_cov=start_cov, start_map=start_map,
                       step_pos=pos, step_rot=rot, step_cov=cov, step_map=mp,
-                      report=rep)
+                      step_ext_rot=ext_rot, step_ext_pos=ext_pos, report=rep)
     med = lambda v: float(np.median(v)) if v else 0.0  # noqa: E731
     out = {"start_cov_gap": start_cov, "start_map_gap": start_map,
            "step_pos_gap_m": med(pos), "step_rot_gap_rad": med(rot),
            "step_cov_gap": med(cov),
            "step_map_gap": sum(b for _, b in mp) / max(sum(c for c, _ in mp),
                                                       1),
+           "step_ext_rot_gap_rad": med(ext_rot),
+           "step_ext_pos_gap_m": med(ext_pos),
            "report_gap": max(rep) if rep else 0.0}
     for k, v in out.items():
         if not math.isfinite(v):

@@ -10,6 +10,12 @@ must make `correct` come out false.
   produces it; the state goes on unaltered.
 
 A cell on one chip has no exchange between chips to leave out.
+
+ESTIMATION_FAULTS are the faults of a configuration that estimates the
+lidar-IMU extrinsic (`extrinsic_est_en`); elsewhere they change nothing:
+
+* extrinsic_frozen: the step's update of the extrinsic is dropped; the
+  state goes on with the extrinsic it was given.
 """
 
 from __future__ import annotations
@@ -48,5 +54,15 @@ def answer_altered(step):
     return f
 
 
+def extrinsic_frozen(step):
+    def f(ls, *args, **kw):
+        off_r, off_t = ls.x.off_r.clone(), ls.x.off_t.clone()
+        out, info = step(ls, *args, **kw)
+        return out._replace(x=out.x._replace(off_r=off_r, off_t=off_t)), info
+    f.sync_free = getattr(step, "sync_free", True)
+    return f
+
+
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
           "answer_altered": answer_altered}
+ESTIMATION_FAULTS = {"extrinsic_frozen": extrinsic_frozen}

@@ -5,7 +5,9 @@ A cell (BENCHMARK.json `workloads`) names a configuration
 (configs/<config>.json, the program's settings as it runs them) and a
 traffic mix (traffic/<traffic>.json, read by traffic/gen.py).  Each
 per-layer metric is a reader of its own, metrics/<name>.py, over the
-facts of the traced stretch (`stretch_facts`).  Nothing here names a
+facts of the traced run (`stretch_facts`): the profiled stretch, the
+untraced calls after it, and the trace records of the program's own
+spans and counters (`span_ms` reads a span).  Nothing here names a
 cell, a configuration or a metric: a later cell or metric is files and a
 BENCHMARK.json entry.
 
@@ -179,14 +181,17 @@ def _records(prof):
 
 
 def stretch_facts(prof, window_s: float, scans: int, results: list,
-                  counters: dict, cfg, card: str, gap_calls: tuple) -> dict:
-    """What every traced stretch has, for the per-layer readers: the
-    device records the profiler saw (kernels, copies, sets), their union,
-    the time by name, the ESIKF passes of the stretch's scans, the
+                  counters: dict, cfg, card: str, gap_calls: tuple,
+                  program_trace=()) -> dict:
+    """What every traced run has, for the per-layer readers: the device
+    records the profiler saw in the stretch (kernels, copies, sets), their
+    union, the time by name, the ESIKF passes of the stretch's scans, the
     program's device counters of K1 and K2 launches, the configuration,
-    the card's peaks, and, for the host gap, the wall and device seconds
-    of each of the untraced calls that follow the stretch (the profiler
-    slows the host)."""
+    the card's peaks; for the host gap, the wall and device seconds of
+    each of the untraced calls that follow the stretch (the profiler
+    slows the host); and `program_trace`, the program's own trace record
+    of each call of its traced pipeline (utils/trace.ScanTrace: its spans
+    and counters), which runs unprofiled after the window."""
     dev, host = _records(prof)
     iv = [(a, b) for a, b, _ in dev]
     by_name: dict[str, list] = {}
@@ -203,7 +208,23 @@ def stretch_facts(prof, window_s: float, scans: int, results: list,
         "counters": counters, "shapes": cfg.shapes.__dict__,
         "extrinsic": bool(cfg.mapping.extrinsic_est_en),
         "peaks": peaks_of(card),
+        "program_trace": list(program_trace),
     }
+
+
+def span_ms(facts: dict, name: str) -> float | None:
+    """Milliseconds a call of the program's spans called `name`: summed
+    within each call's trace record, averaged over the calls; None where
+    no call has such a span."""
+    per, seen = [], False
+    for rec in facts["program_trace"]:
+        ms = 0.0
+        for sp in rec.spans:
+            if sp.name == name:
+                ms += (sp.end_us - sp.start_us) * 1e-3
+                seen = True
+        per.append(ms)
+    return sum(per) / len(per) if seen else None
 
 
 def kernel_time(facts: dict, fragment: str) -> tuple[float, int]:

@@ -179,8 +179,10 @@ def transport(d: torch.Tensor, x: State, x0: State) -> torch.Tensor:
 
 def update(x0: State, P0, rows, max_iter: int, rnd):
     """The iterated update from the propagated (x0, P0).  `rows(x,
-    associate)` gives (H (n, 6), z (n,)) at x: the point-to-plane
-    Jacobian rows over position and attitude, and the residuals' negation;
+    associate)` gives (H (n, k), z (n,)) at x: the point-to-plane
+    Jacobian rows over the first k error dimensions (k = 6: position and
+    attitude; k = 12: and the extrinsic's attitude and translation), and
+    the residuals' negation;
     it associates anew when `associate` holds: on the first pass and
     after every converged one.  Up to max_iter + 1 passes; the loop ends
     once two passes have converged.  Returns (x, P)."""
@@ -192,7 +194,7 @@ def update(x0: State, P0, rows, max_iter: int, rnd):
         P = T @ P0 @ T.T
         P = 0.5 * (P + P.T)
         Hf = torch.zeros(H.shape[0], DIM, dtype=P.dtype, device=P.device)
-        Hf[:, :6] = H
+        Hf[:, :H.shape[1]] = H
         HTH = rnd(Hf.T @ Hf)
         P_post = torch.linalg.inv(torch.linalg.inv(P) + HTH / R_POINT)
         KH = rnd(P_post @ HTH / R_POINT)

@@ -7,7 +7,9 @@ end (filter.py), the moving local-map box, the scan's voxel downsample
 iterated update with a 5-nearest-neighbour plane for each point (a
 principal-axis fit, refused unless all five lie within 0.1 m of it, the
 fifth within sqrt(5) m, and the point's residual passes the robust gate),
-and the insert of the scan's points at the updated pose (pointmap.py).
+estimating the lidar-IMU extrinsic with the pose where the configuration
+says so (`extrinsic_est_en`), and the insert of the scan's points at the
+updated pose (pointmap.py).
 The host loop: the filter starts from the first groups' IMU samples
 (more than ten), stride-cuts a scan to `n_raw` points and its IMU samples
 to `n_imu`, and the first scan after the start only builds the map.
@@ -96,10 +98,10 @@ class RefLIO:
         self.max_live = sh.get("knn_max_live", 0)
         if sh.get("knn_neighbors", 27) != 27:
             raise ValueError("the reference searches 27 cells")
-        if mp.get("extrinsic_est_en", True) or kd.get("single_association") \
-                or kd.get("plane_cache"):
-            raise ValueError("the reference runs the row path with the "
-                             "extrinsic fixed")
+        if kd.get("single_association") or kd.get("plane_cache"):
+            raise ValueError("the reference runs the row path, with "
+                             "re-association on converged passes")
+        self.ext = bool(mp.get("extrinsic_est_en", True))
         self.packed = 2.2 * self.det / self.leaf < 1000.0
         self.drop_high_z = sh.get("ds_drop_high_z", False)
         self.Q = F.noise(cfg, dtype, device)
@@ -211,7 +213,11 @@ class RefLIO:
             self.map.crop(*self.cube)
 
     def _rows(self, ds: torch.Tensor):
-        """rows(x, associate) for filter.update over the scan's points."""
+        """rows(x, associate) for filter.update over the scan's points
+        (laserMapping.cpp, h_share_model): with C = R^T n, a point's row is
+        [n, p_imu x C] over position and attitude and, with extrinsic
+        estimation, [p_lidar x R_il^T C, C] over the extrinsic's attitude
+        and translation besides."""
         rnd = self.rnd
         sq = torch.sqrt(torch.clamp(torch.linalg.vector_norm(ds, dim=-1),
                                     min=1e-8))
@@ -230,7 +236,10 @@ class RefLIO:
             sel = assoc["ok"] & (1.0 - 0.9 * torch.abs(r) / sq > S_GATE)
             n = assoc["n"][sel]
             C = n @ x.R
-            H = rnd(torch.cat([n, torch.linalg.cross(p_imu[sel], C)], -1))
+            cols = [n, torch.linalg.cross(p_imu[sel], C)]
+            if self.ext:  # the extrinsic's attitude and translation
+                cols += [torch.linalg.cross(ds[sel], C @ x.R_il), C]
+            H = rnd(torch.cat(cols, -1))
             return H, -r[sel]
 
         return rows

@@ -10,13 +10,17 @@ the traffic.  Set-up builds or loads the program's kernels, makes the
 traffic, and runs the IMU initialisation and the warmup scans that
 capture every graph the window replays.  The window then feeds scans
 back to back for --seconds; with --trace 1 a bounded stretch of it runs
-under the profiler and the per-layer metrics are read from that stretch.
-After the window the reference (ref/) judges the program's answers
-(check.py).  The last line of standard output is one JSON object; the
-compared numbers with their limits are also the last lines of standard
-error.  Exits non-zero without a result when no GPU (or too few) is
-present, when the program or a file is missing, when JAX or the JAX
-package was loaded, or when a declared metric could not be read.
+under the profiler and the per-layer metrics are read from that stretch,
+and after the window a second pipeline with the program's own trace on
+(LIOPipeline(trace=True)), started from the first one's state, runs the
+scans that follow unprofiled, for the metrics that read the program's
+spans and counters.  After the window the reference (ref/) judges the
+program's answers (check.py).  The last line of standard output is one
+JSON object; the compared numbers with their limits are also the last
+lines of standard error.  Exits non-zero without a result when no GPU
+(or too few) is present, when the program or a file is missing, when
+JAX or the JAX package was loaded, or when a declared metric could not
+be read.
 """
 
 import time
@@ -55,6 +59,9 @@ SAMPLES = 5  # checked steps drawn in a window
 STRETCH_SCANS = 32  # scans in the traced stretch
 STRETCH_AT = 0.3  # the stretch opens at this share of the window
 GAP_SCANS = 32  # untraced calls after the stretch that time the host gap
+TRACE_CALLS = 32  # calls of the program's traced pipeline after the window
+STAGES = ("lio.imu", "lio.fov_crop", "lio.downsample", "lio.update",
+          "lio.insert")  # the spans that partition a scan's lio.scan
 WARM_SCANS = 8  # scans of set-up after the start (the graph's capture)
 
 
@@ -80,17 +87,17 @@ def card_line(device) -> tuple[str, dict]:
     return name, info
 
 
-def build_pipeline(cfg, device, fault=None):
-    """The program as the cell drives it, one scan a call; `fault` (a
-    function of the step) wraps every step the pipeline builds: the
-    planted faults of the tests."""
+def build_pipeline(cfg, device, fault=None, trace=False):
+    """The program as the cell drives it, one scan a call, with its own
+    trace on or off; `fault` (a function of the step) wraps every step
+    the pipeline builds: the planted faults of the tests."""
     import better_fastlio2_tpu_torch.pipeline.lio as lio
 
     make = lio.make_step_fn
     if fault is not None:
         lio.make_step_fn = lambda *a, **k: fault(make(*a, **k))
     try:
-        return lio.LIOPipeline(cfg, device=str(device))
+        return lio.LIOPipeline(cfg, device=str(device), trace=trace)
     finally:
         lio.make_step_fn = make
 
@@ -99,6 +106,20 @@ def feed(pipe, g):
     return pipe.process_scan(g["pts"], g["pt_t"], g["imu_acc"],
                              g["imu_gyr"], g["imu_t"], g["scan_beg_abs"],
                              g["scan_end_t"])
+
+
+def program_trace(pipe, cfg, device, fault, groups) -> list:
+    """The trace records (utils/trace.ScanTrace) of the program's own
+    spans and counters over `groups` but the first: a second pipeline,
+    its trace on, takes `pipe`'s state and goes on from there, unprofiled;
+    its first call captures its graph and is left out.  `pipe` is not
+    fed again."""
+    tp = build_pipeline(cfg, device, fault, trace=True)
+    tp.inited, tp.acc_norm = True, pipe.acc_norm
+    tp.last_scan_end_abs = pipe.last_scan_end_abs
+    tp._scan_count = pipe._scan_count
+    tp.ls = pipe.ls
+    return [feed(tp, g)["trace"] for g in groups][1:]
 
 
 def launch_counts() -> dict:
@@ -150,9 +171,12 @@ class GapTimer:
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
              trace: bool, t_start: float, device: str = "cuda",
              cfg_over=None, traffic_over=None, fault=None,
-             control: bool = False) -> dict:
+             control: bool = False, limits_over=None) -> dict:
     """One run of `cell`; returns the result line's object (with
-    `control`, also the control's numbers under "readings")."""
+    `control` or a `fault`, also every number of the program, and with
+    `control` the control's, under "readings").  cfg_over, traffic_over
+    and limits_over change the cell's files as read: the tests' sizes and
+    limits."""
     import torch
 
     from better_fastlio2_tpu_torch.config import LIOConfig
@@ -167,6 +191,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
     if traffic_over:
         traffic_over(spec)
     limits = H.load_limits(cell["name"])
+    if limits_over:
+        limits_over(limits)
     want = H.declared(bench, cell["name"], trace)
     card, dev_info = card_line(dev)
     cfg = LIOConfig.from_dict(cfg_dict)
@@ -273,9 +299,6 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
     window_s = t_close - t_open
     dev_info["memory_peak_bytes"] = (
         int(torch.cuda.max_memory_allocated(dev)) if cuda else 0)
-    bad = H.forbidden_modules()
-    if bad:
-        raise H.BenchError(f"modules of JAX or the JAX package loaded: {bad}")
 
     # ---- the program's answers ---------------------------------------------
     traj = np.asarray(pipe.trajectory, np.float64)
@@ -299,8 +322,12 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
         sw, sn, s0, cnt = facts_in
         calls = lat[gap_from:gap_from + GAP_SCANS]
         gap_calls = (calls, gap.device_s() if gap is not None else calls)
+        t = time.perf_counter()
+        traced = program_trace(pipe, cfg, dev, fault, [
+            traffic.group(g + i) for i in range(TRACE_CALLS + 1)])
+        trace_s = time.perf_counter() - t
         facts = H.stretch_facts(prof, sw, sn, results[s0:s0 + sn], cnt,
-                                cfg, card, gap_calls)
+                                cfg, card, gap_calls, traced)
         k2_s, k2_rec = H.kernel_time(facts, "hth_cluster_kernel")
         log(json.dumps({"stretch_scans": sn, "stretch_first_scan": s0,
                         "window_s": sw, "busy_s": facts["busy_s"],
@@ -309,7 +336,12 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
                         "k2": {"counter_calls": cnt["fused_hth"],
                                "cupti_records": k2_rec, "device_s": k2_s},
                         "passes": facts["passes"]}))
-        prof = None
+        ms = {n: H.span_ms(facts, n) for n in ("lio.scan",) + STAGES}
+        if None not in ms.values():
+            ms["head_tail"] = ms["lio.scan"] - sum(ms[n] for n in STAGES)
+        log(json.dumps({"program_trace": {"calls": len(traced),
+                                          "s": trace_s, "ms": ms}}))
+        prof = traced = None
     del pipe, gap
     gc.collect()
     if cuda:
@@ -325,14 +357,13 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
     log(json.dumps({"numbers": nums}))
     ok, compared = check.verdict(nums, limits)
     log(json.dumps({"reference_s": time.perf_counter() - t}))
-    extra = {}
+    extra = {"program": nums} if control or fault is not None else {}
     if control:
         t = time.perf_counter()
         cref = check.reference_answers(cfg_dict, traffic, first_group, steps,
                                        dev, control=True)
         cdetail = {}
-        extra = {"program": nums,
-                 "control": check.numbers(cref, ref, cdetail)}
+        extra["control"] = check.numbers(cref, ref, cdetail)
         log(json.dumps({"control_gaps": cdetail,
                         "control_s": time.perf_counter() - t}))
 
@@ -351,6 +382,9 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float,
             if name in e2e:
                 metrics[name] = {"value": float(e2e[name]), "unit": unit}
     H.check_line(metrics, want)
+    bad = H.forbidden_modules()
+    if bad:
+        raise H.BenchError(f"modules of JAX or the JAX package loaded: {bad}")
     line = {"correct": bool(ok and failed == 0), "attempted": n_win,
             "failed": failed, "metrics": metrics, "device": dev_info}
     if trace:

@@ -1,9 +1,12 @@
 """The reference against itself in float64, and against the program run
 in float64 on the CPU at small sizes: two runs agree bit for bit; a run
 started from another run's state, written as the program's state is,
-goes on as the run it was taken from; and the program, which follows the
-same semantics in other code, agrees with it to rounding."""
+goes on as the run it was taken from; the program, which follows the
+same semantics in other code, agrees with it to rounding, with the
+extrinsic fixed and estimated; and the cells' reference answers stay
+what they were before the reference learned to estimate the extrinsic."""
 
+import hashlib
 import json
 
 import numpy as np
@@ -90,8 +93,8 @@ def test_reference_repeats_and_resumes(cell):
     np.testing.assert_allclose(out["steps"][1]["poses"], a[K - 3:K],
                                atol=1e-9)
     assert out["acc_norm"] == r.acc_norm
-    ans = {"steps": [{"poses": s["poses"], "P": s["P"], "map": s["map"]}
-                     for s in out["steps"]]}
+    ans = {"steps": [{"poses": s["poses"], "P": s["P"], "map": s["map"],
+                      "ext": s["ext"]} for s in out["steps"]]}
     nums = check.numbers(ans, out)
     assert set(nums) == set(check.NUMBERS)
     assert all(v == 0.0 for v in nums.values())
@@ -99,12 +102,13 @@ def test_reference_repeats_and_resumes(cell):
     assert ok and json.dumps(compared)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_program_in_float64_agrees_with_the_reference(cell):
+def _program_steps(cfg, tr, K):
+    """The program in float64 on the CPU over K scans, each a step from a
+    snapshot of its state; returns (steps, the reference's answers, the
+    program's answers)."""
     from better_fastlio2_tpu_torch.config import LIOConfig
     from better_fastlio2_tpu_torch.pipeline.lio import LIOPipeline
 
-    cfg, tr = _setup(cell)
     cfg["dtype"] = "float64"
     pipe = LIOPipeline(LIOConfig.from_dict(cfg), device="cpu")
     names = ("pts", "pt_t", "imu_acc", "imu_gyr", "imu_t", "scan_beg_abs",
@@ -114,17 +118,75 @@ def test_program_in_float64_agrees_with_the_reference(cell):
         pipe.process_scan(*[tr.group(g)[k] for k in names])
         g += 1
     steps = []
-    for j in range(8):
+    for j in range(K):
         before = H.snapshot(pipe.ls) if j else None
         pipe.process_scan(*[tr.group(g + j)[k] for k in names])
         steps.append({"scans": (j, j + 1), "before": before,
                       "after": H.snapshot(pipe.ls)})
     ref = check.reference_answers(cfg, tr, g, steps, "cpu")
     traj = np.asarray(pipe.trajectory, np.float64)
+    return steps, ref, check.program_answers(traj, steps, cfg)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_program_in_float64_agrees_with_the_reference(cell):
+    cfg, tr = _setup(cell)
+    steps, ref, prog = _program_steps(cfg, tr, 8)
     detail = {}
-    nums = check.numbers(check.program_answers(traj, steps, cfg), ref, detail)
+    nums = check.numbers(prog, ref, detail)
     # the program reports its pose in float32
     assert max(detail["step_pos"]) < 1e-6, detail
     assert max(detail["step_rot"]) < 1e-6, detail
     assert max(detail["step_cov"] + [detail["start_cov"]]) < 1e-6, detail
     assert nums["step_map_gap"] == 0.0 and nums["start_map_gap"] == 0.0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_program_in_float64_agrees_estimating_the_extrinsic(cell):
+    """With extrinsic_est_en on, the reference's 12-column rows move the
+    extrinsic as the program does: every step's state and extrinsic agree
+    to 1e-8, over scans in which the extrinsic moves."""
+    cfg, tr = _setup(cell)
+    cfg["mapping"]["extrinsic_est_en"] = True
+    steps, ref, prog = _program_steps(cfg, tr, 8)
+    moved = [check.quat_angle(st["before"]["off_r"], st["after"]["off_r"])
+             for st in steps[1:]]
+    assert max(moved) > 1e-6, moved
+    for a, r in zip(prog["steps"][1:], ref["steps"][1:]):
+        assert np.linalg.norm(a["left"][:3] - r["poses"][-1][:3]) < 1e-8
+        assert check.quat_angle(a["left"][3:], r["poses"][-1][3:]) < 1e-8
+        assert check.quat_angle(a["ext"][:4], r["ext"][:4]) < 1e-8
+        assert np.linalg.norm(a["ext"][4:] - r["ext"][4:]) < 1e-8
+    nums = check.numbers(prog, ref)
+    assert nums["step_ext_rot_gap_rad"] < 1e-8
+    assert nums["step_ext_pos_gap_m"] < 1e-8
+
+
+# sha256 of the reference's poses over ten scans and its covariance and
+# map after them (small sizes, seed 2**32 + 17), taken with the reference
+# that refused extrinsic estimation
+REF_DIGEST = {
+    "hdl64_street_scan":
+        "08b60a27ea8330228b13ac4558f3802cbadf6416f0e39ec78333dbde242901ea",
+    "vlp16_room_scan":
+        "c59239feff39237a0ea87f969801067e38e2d4ff75fb64b594b026fe1de4fdd1",
+}
+
+
+def _digest(h, v):
+    a = np.ascontiguousarray(np.asarray(v))
+    h.update(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_reference_answers_unchanged(cell):
+    cfg, tr = _setup(cell)
+    _, poses, _, r = _run(cfg, tr, 10)
+    h = hashlib.sha256()
+    for p in poses:
+        _digest(h, p)
+    m = r.map
+    for v in (r.P, m.keys, m.used, m.pts, m.real):
+        _digest(h, v.numpy())
+    assert h.hexdigest() == REF_DIGEST[cell]

@@ -1,9 +1,14 @@
 """The traffic generator: the seed fixes the inputs, the lap closes on
-itself, and the feed carries the times forward."""
+itself, the feed carries the times forward, the traffic files make what
+they made before the field of view was modelled, and a sensor with a
+limited field of view sees only that field, at the returns asked for."""
+
+import hashlib
 
 import numpy as np
 import pytest
 
+from lio_bench import harness as H
 from lio_bench.traffic import gen
 
 from .small import traffic_over
@@ -79,3 +84,49 @@ def test_still_prefix_initialises():
     assert len(g["imu_acc"]) > 10  # the first group initialises the filter
     np.testing.assert_allclose(np.mean(g["imu_acc"], 0), [0, 0, gen.GRAVITY],
                                atol=0.02)
+
+
+# sha256 of every group of a cell's traffic (the still prefix, the run-in
+# and one lap) at full size, seed 2**31 + 7, with the cell's extrinsic:
+# made by the generator before it modelled a field of view
+TRAFFIC_DIGEST = {
+    "hdl64_street_scan":
+        "abc79b56d89a24aee8b01cb2ff73aebc4733aaa4e7277c5d3dbca5f77a7f2a0c",
+    "vlp16_room_scan":
+        "29ff8be62d7f7d29594f41928e2aa4ebd2a2043f42b6a0b1f9229de62158c743",
+}
+
+
+@pytest.mark.parametrize("cell", sorted(TRAFFIC_DIGEST))
+def test_traffic_files_make_the_same_groups(cell):
+    w = H.cell_of(H.load_benchmark(), cell)
+    tr = gen.Traffic(gen.load_spec(w["traffic"]), 2 ** 31 + 7,
+                     extrinsic=gen.extrinsic_of(H.load_config(w["config"])))
+    h = hashlib.sha256()
+    for i in range(len(tr.prefix) + tr.lap_scans):
+        g = tr.group(i)
+        for k in sorted(g):
+            a = np.ascontiguousarray(np.asarray(g[k]))
+            h.update(k.encode())
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(a.tobytes())
+    assert h.hexdigest() == TRAFFIC_DIGEST[cell]
+
+
+@pytest.mark.parametrize("name", ["street_scan", "room_scan"])
+def test_field_of_view_culls_and_calibrates(name):
+    """A forward-looking sensor of 120 x 25 degrees (a Livox HAP's field):
+    every return within it, and the returns a sweep asked for, within
+    10 %, in both worlds; the lidar sits at a rotated extrinsic."""
+    s = _spec(name)
+    s["sensor"].update(fov_h_deg=120.0, fov_v_deg=25.0)
+    R = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    tr = gen.Traffic(s, 2 ** 33 + 1, extrinsic=(R, np.array([0.1, 0, 0.2])))
+    pts = np.concatenate([g["pts"] for g in tr.lap + tr.prefix])
+    az = np.degrees(np.arctan2(pts[:, 1], pts[:, 0]))
+    el = np.degrees(np.arctan2(pts[:, 2], np.hypot(pts[:, 0], pts[:, 1])))
+    assert np.all(np.abs(az) <= 60.0) and np.all(np.abs(el) <= 12.5)
+    # the field is filled, not a sliver of it
+    assert np.ptp(az) > 100.0 and np.ptp(el) > 15.0
+    want = s["sensor"]["returns"]
+    assert abs(tr.returns() - want) <= 0.1 * want, tr.returns()

@@ -5,7 +5,11 @@ One general generator reads every traffic file (`<name>.json` beside
 this module).  A file names a world and its size, the sensor's returns
 a sweep, the range noise, the scan and IMU rates, the walking or
 driving speed, a still prefix for the IMU initialisation and the scans
-of one closed lap at a constant turn rate.  The lap ends where it
+of one closed lap at a constant turn rate.  The sensor sees all around
+(a spinning lidar), or, where its `fov_h_deg` and `fov_v_deg` are given,
+only the field ahead of it that they span (a solid-state lidar): the
+azimuths within fov_h_deg / 2 of its +x axis and the elevations within
+fov_v_deg / 2 of its xy plane, in the lidar's frame.  The lap ends where it
 began (position, heading, velocity), so the traffic is the still
 prefix, then the one lap fed again and again with its times carried
 forward: the work of making it does not grow with the run's length.
@@ -258,7 +262,7 @@ def _sweep(world, lap, rng, t0, dur, n, spec, extrinsic):
     """One sweep of n sampled returns: each return's capture time, the
     world point it hits, and the point in the lidar's frame (the lap is
     the IMU's pose, the lidar sits at `extrinsic` in it), culled to the
-    sensor's range."""
+    sensor's range and field of view."""
     sen = spec["sensor"]
     tofs = np.sort(rng.uniform(0, dur, n))
     slice_t = t0 + (np.arange(N_SLICES) + 0.5) * dur / N_SLICES
@@ -274,17 +278,24 @@ def _sweep(world, lap, rng, t0, dur, n, spec, extrinsic):
     out += rng.normal(scale=sen["noise_m"], size=out.shape)
     rr = np.linalg.norm(out, axis=1)
     keep = (rr > sen["min_range_m"]) & (rr < sen["max_range_m"])
+    if "fov_h_deg" in sen:
+        az = np.degrees(np.arctan2(out[:, 1], out[:, 0]))
+        el = np.degrees(np.arctan2(out[:, 2], np.hypot(out[:, 0], out[:, 1])))
+        keep &= (np.abs(az) <= 0.5 * sen["fov_h_deg"]) & \
+            (np.abs(el) <= 0.5 * sen["fov_v_deg"])
     return out[keep], tofs[keep], dyn[keep]
 
 
 def _calibrate(world, lap, spec, extrinsic) -> int:
     """Returns to sample a sweep so that about `returns` survive the range
-    cull, and the movers' share of the sampled returns, from probe sweeps
-    of the world's own generator (seeded by the world, so every run seed
-    gets the same numbers)."""
+    and field-of-view culls, and the movers' share of the sampled returns,
+    from probe sweeps of the world's own generator (seeded by the world,
+    so every run seed gets the same numbers).  A world whose every return
+    survives a spinning sensor's range cull (oversample 1) samples
+    `returns` as they are."""
     sen = spec["sensor"]
     want = sen["returns"]
-    if world.oversample == 1.0:
+    if world.oversample == 1.0 and "fov_h_deg" not in sen:
         return want
     prng = np.random.default_rng(spec["world"]["seed"] + 1)
     n_arg = int(want * world.oversample)
