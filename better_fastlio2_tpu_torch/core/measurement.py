@@ -502,18 +502,20 @@ def _make_row_measure(m, pts_body, pts_valid, search_rows,
         srob = 1.0 - 0.9 * torch.abs(pd2) / sqrt_body
         sel = aux.fit_ok & (srob > ROBUST_S_GATE)
         C = so3.quat_inv_rotate(s.rot, aux.normal)
-        HTH, HTh = fused_hth(p_rot.contiguous(), p_imu.contiguous(),
-                             aux.normal.contiguous(), C.contiguous(),
-                             pd2.contiguous(), sel, extrinsic=extrinsic_est)
-        if extrinsic_est:
-            R_il = so3.quat_to_matrix(s.off_r).to(HTH.dtype)
-            HTH = HTH.clone()
-            HTH[6:9] = R_il.T @ HTH[6:9]
-            HTH[:, 6:9] = HTH[:, 6:9] @ R_il
-            HTh = HTh.clone()
-            HTh[6:9] = R_il.T @ HTh[6:9]
-        else:
-            HTH, HTh = HTH[:6, :6], HTh[:6]
+        with span("lio.hth"):
+            HTH, HTh = fused_hth(p_rot.contiguous(), p_imu.contiguous(),
+                                 aux.normal.contiguous(), C.contiguous(),
+                                 pd2.contiguous(), sel,
+                                 extrinsic=extrinsic_est)
+            if extrinsic_est:
+                R_il = so3.quat_to_matrix(s.off_r).to(HTH.dtype)
+                HTH = HTH.clone()
+                HTH[6:9] = R_il.T @ HTH[6:9]
+                HTH[:, 6:9] = HTH[:, 6:9] @ R_il
+                HTh = HTh.clone()
+                HTh[6:9] = R_il.T @ HTh[6:9]
+            else:
+                HTH, HTh = HTH[:6, :6], HTh[:6]
         n_valid = torch.sum(sel.to(dtype))
         return MeasurementOut(aux=aux, neq=(HTH, HTh, n_valid))
 

@@ -454,6 +454,16 @@ class QuantWindowInputs(NamedTuple):
     meta: torch.Tensor  # (W, 8 * m_imu + 4) f32; padded tail rows are 0
 
 
+def _stride_cut(pts, pt_t, n_pad: int):
+    """A scan of more than n_pad points, stride-subsampled on the host to
+    at most n_pad."""
+    n = len(pts)
+    if n <= n_pad:
+        return pts, pt_t
+    stride = -(-n // n_pad)
+    return pts[::stride][:n_pad], pt_t[::stride][:n_pad]
+
+
 def _bulk_cols(n_raw: int) -> int:
     """int16 columns of the quantized bulk in the window buffer, padded to
     an even count so that the f32 meta after it is 4-byte aligned."""
@@ -711,6 +721,7 @@ class LIOPipeline:
         self.last_scan_end_abs: float | None = None  # f64 host clock
         self.trajectory: list[np.ndarray] = []
         self._pending_info = None  # per-scan pipelined readback
+        self._scan_rows: list[torch.Tensor] = []  # per scan: _pack_scan
         # the step's trace: the tracer, the records of the last scans, and
         # the host side of each scan launched and not yet recorded
         self._tracer = Tracer(self.device) if trace else None
@@ -883,14 +894,13 @@ class LIOPipeline:
 
     def _prepare(self, pts, pt_t, imu_acc, imu_gyr, imu_t, scan_beg_abs,
                  scan_end_t):
-        """A scan's host work before its tick: the padded arrays, the map
-        rebuild at its cadence, and per scan the program that runs it
-        (the warmup->steady handoff) with, on CUDA, the packed pinned row.
-        Returns (program, padded entry, row); in window mode the scan is
-        buffered (its window dispatched when full) and the program and row
-        are None."""
-        P, T, V = self._pad_points(pts, pt_t)
-        A, G, Tt, Mk = self._pad_imu(imu_acc, imu_gyr, imu_t)
+        """A scan's host work before its tick: the map rebuild at its
+        cadence, and per scan the program that runs it (the warmup->steady
+        handoff) with, on CUDA, the packed pinned row (_pack_scan), else
+        the padded arrays.  Returns (program, padded entry, row): per scan
+        on CUDA the entry is None, on the CPU the row; in window mode the
+        scan is buffered (its window dispatched when full) and the program
+        and row are None."""
         self._scan_count += 1
         # periodic map compaction (recontructIKdTree, laserMapping.cpp:
         # 612-669): rebuild when the tombstones left by FoV crops pass a
@@ -908,7 +918,12 @@ class LIOPipeline:
         last_end_rel = (self.last_scan_end_abs - scan_beg_abs
                         if self.last_scan_end_abs is not None else 0.0)
         self.last_scan_end_abs = scan_beg_abs + scan_end_t
-        entry = (P, T, V, A, G, Tt, Mk, last_end_rel, scan_end_t)
+        if self.device.type == "cuda" and not self._use_window:
+            entry = None
+        else:
+            entry = (*self._pad_points(pts, pt_t),
+                     *self._pad_imu(imu_acc, imu_gyr, imu_t), last_end_rel,
+                     scan_end_t)
 
         if self._use_window:
             if self.quantized:
@@ -917,9 +932,8 @@ class LIOPipeline:
                 if self.mesh is not None:  # this rank's rows only
                     rows = slice(self.mesh.rank * self._n_pts,
                                  (self.mesh.rank + 1) * self._n_pts)
-                    P, T, V = P[rows], T[rows], V[rows]
-                self._wbuf.append((P, T, V, A, G, Tt, Mk, last_end_rel,
-                                   scan_end_t))
+                    entry = (*(a[rows] for a in entry[:3]), *entry[3:])
+                self._wbuf.append(entry)
             if len(self._wbuf) == self.window:
                 self._dispatch_window()
             return None, entry, None
@@ -933,8 +947,9 @@ class LIOPipeline:
             prog = "steady"
         else:
             prog = "warmup"
-        host = (self._pack_window([entry]) if self.device.type == "cuda"
-                else None)
+        host = (self._pack_scan(pts, pt_t, imu_acc, imu_gyr, imu_t,
+                                last_end_rel, scan_end_t)
+                if entry is None else None)
         return prog, entry, host
 
     def _launch(self, prog: str, entry: tuple, host) -> torch.Tensor:
@@ -988,8 +1003,8 @@ class LIOPipeline:
 
     def _scan_tick(self, prog: str, host: torch.Tensor) -> torch.Tensor:
         """One scan on CUDA as one tick of `prog` ("warmup" or "steady")
-        on its packed unquantized row `host` (_pack_window, W = 1,
-        pinned): a replay of the program's one-tick graph, which takes the
+        on its packed unquantized row `host` (_pack_scan, pinned): a
+        replay of the program's one-tick graph, which takes the
         row in one non-blocking copy.  The program's first scan is copied
         to the device, run eagerly on the capture stream, and the graph
         captured from the state it leaves
@@ -1013,11 +1028,8 @@ class LIOPipeline:
 
     def _pad_points(self, pts, pt_t):
         n_pad = self.cfg.shapes.n_raw
+        pts, pt_t = _stride_cut(pts, pt_t, n_pad)
         n = len(pts)
-        if n > n_pad:  # stride-subsample on the host
-            stride = -(-n // n_pad)
-            pts, pt_t = pts[::stride][:n_pad], pt_t[::stride][:n_pad]
-            n = len(pts)
         np_dt = np.float32 if self.dtype == torch.float32 else np.float64
         P = np.zeros((n_pad, 3), np_dt)
         T = np.zeros(n_pad, np_dt)
@@ -1117,6 +1129,35 @@ class LIOPipeline:
                 rows[i] = np.concatenate([
                     P.reshape(-1), T, V, A.reshape(-1), G.reshape(-1), Tt, Mk,
                     [ler, set_, 1.0]])
+        return host
+
+    def _pack_scan(self, pts, pt_t, imu_acc, imu_gyr, imu_t, last_end_rel,
+                   scan_end_t) -> torch.Tensor:
+        """One scan's row for its tick on CUDA: _pack_window's row (W = 1)
+        of the scan as _pad_points / _pad_imu pad it, padded and written
+        in place into the older of two pinned rows kept for the pipeline's
+        life.  That row's last copy has finished: a call packs after the
+        result of the scan two before it was read back (pipelined or not),
+        and that scan's tick followed the copy on one stream."""
+        n, m = self._n_pts, self.cfg.shapes.n_imu
+        if not self._scan_rows:
+            self._scan_rows = [
+                torch.zeros((1, 5 * n + 8 * m + 3), dtype=self.dtype,
+                            pin_memory=self.device.type == "cuda")
+                for _ in (0, 1)]
+        self._scan_rows.reverse()
+        host = self._scan_rows[0]
+        row = host.numpy()[0]
+        pts, pt_t = _stride_cut(pts, pt_t, n)
+        k, j = len(pts), min(len(imu_acc), m)
+        c = np.cumsum([0, 3 * n, n, n, 3 * m, 3 * m, m, m])
+        P, A, G = (row[c[i]:c[i + 1]].reshape(-1, 3) for i in (0, 3, 4))
+        T, V, Tt, Mk = (row[c[i]:c[i + 1]] for i in (1, 2, 5, 6))
+        P[:k], T[:k], V[:k] = pts, pt_t, 1.0
+        P[k:], T[k:], V[k:] = 0.0, 0.0, 0.0
+        A[:j], G[:j], Tt[:j], Mk[:j] = imu_acc[:j], imu_gyr[:j], imu_t[:j], 1.0
+        A[j:], G[j:], Tt[j:], Mk[j:] = 0.0, 0.0, np.inf, 0.0
+        row[c[-1]:] = last_end_rel, scan_end_t, 1.0
         return host
 
     def _dispatch_window(self) -> None:

@@ -2,7 +2,9 @@
 
 `span(name)` marks a stage of the step (lio.scan, lio.imu, lio.fov_crop,
 lio.downsample, lio.update, lio.update.pass, lio.associate, lio.refresh,
-lio.insert).  It always opens a `record_function` range on the host.
+lio.hth, lio.solve, lio.insert; inside a pass, lio.hth is the row
+measure's normal equations, the K2 call with the extrinsic's rotation
+of its blocks, and lio.solve the gain and the increment).  It always opens a `record_function` range on the host.
 While a pipeline's `Tracer` is active (`tracing`, LIOPipeline(trace=True))
 it also stamps the span's boundaries into the scan's stamp row: on CUDA a
 one-thread kernel writes %globaltimer (csrc/trace_stamp.cu), so a stamp

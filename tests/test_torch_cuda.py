@@ -95,7 +95,14 @@ traced, the replays equal the traced eager ticks in every info value,
 counter and span tree, and the untraced replays in every info value; a
 traced steady scan makes the untraced scan's one host read and, pipelined,
 no sync.
+
+The Livox HAP deployment (lio_bench/configs/hap_ros.json, extrinsic
+estimation on): its untraced per-scan graph has the same nodes by type
+with the lio.hth and lio.solve span sites as without them, and traced,
+every pass holds both spans within the scan's stamp slots.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -1297,6 +1304,31 @@ def test_cuda_per_scan_steady_scan_makes_no_sync(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_per_scan_rows_are_two_pinned_rows_in_turn(cuda):
+    """Per scan, each scan's row is written into one of two pinned rows
+    kept for the pipeline's life, in turn.  Pipelined (a row is written
+    while the scan before runs) and not, the replays give the eager
+    ticks' trajectory bit for bit."""
+    groups = _bench_groups()
+    runs = {}
+    for pipelined, graphed in ((True, True), (False, True), (False, False)):
+        p = LIOPipeline(_bench_cfg(), pipelined=pipelined, graphed=graphed)
+        used = []
+        for g in groups[:16]:
+            p.process_scan(*_args(g))
+            if p._scan_rows:
+                used.append(p._scan_rows[0].data_ptr())
+        p.flush()
+        assert len(p._scan_rows) == 2
+        assert all(r.is_pinned() for r in p._scan_rows)
+        assert used[::2] == [used[0]] * len(used[::2])
+        assert used[1::2] == [used[1]] * len(used[1::2]) != used[0]
+        runs[pipelined, graphed] = np.array(p.trajectory)
+    for traj in runs.values():
+        np.testing.assert_array_equal(traj, runs[False, False])
+
+
+@pytest.mark.cuda
 def test_cuda_per_scan_graph_takes_replaced_state(cuda):
     """A state replaced between scans reaches the per-scan graph of the
     program that runs next: a pose feedback under the warmup graph, and
@@ -1626,3 +1658,62 @@ def test_cuda_imu_stage_one_launch_a_scan(cuda):
     assert ticks >= 10 and p.graph is not None
     assert p.graph.nodes["imu_stage"] == 1
     assert _ran("imu_stage") - k0 == ticks
+
+
+# ---- the Livox HAP deployment (lio_bench/configs/hap_ros.json) ----------
+
+def _hap_groups(n: int):
+    """The hap_ros configuration and n groups of its traffic, at the
+    benchmark's small test sizes (lio_bench/tests/small.py)."""
+    from lio_bench import harness as H
+    from lio_bench.tests.small import cfg_over, traffic_over
+    from lio_bench.traffic import gen
+
+    cfg = H.load_config("hap_ros")
+    cfg_over(cfg)
+    spec = gen.load_spec("hap_room")
+    traffic_over(spec)
+    tr = gen.Traffic(spec, 2 ** 31 + 1907, extrinsic=gen.extrinsic_of(cfg))
+    return cfg, [tr.group(i) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_hap_span_sites_leave_the_untraced_graph(cuda, monkeypatch):
+    """The extrinsic-estimating row path of the HAP deployment: with
+    tracing off, the per-scan graph captured with the lio.hth and
+    lio.solve span sites has the nodes, by type, of the graph captured
+    without them, and replays to the same bits; traced, every one of the
+    five passes holds both spans within the scan's stamp slots."""
+    from better_fastlio2_tpu_torch.core import esikf, measurement
+    from better_fastlio2_tpu_torch.utils import trace as ttrace
+
+    cfg, groups = _hap_groups(16)
+
+    def run(trace=False):
+        p = LIOPipeline(LIOConfig.from_dict(cfg), trace=trace)
+        outs = _outs(p, groups)
+        assert p.graph is not None and p.graph.replays > 0
+        return p, outs
+
+    p_on, _ = run()
+    real = esikf.span
+    for mod in (esikf, measurement):
+        monkeypatch.setattr(mod, "span", lambda name: (
+            real(name) if name not in ("lio.hth", "lio.solve")
+            else contextlib.nullcontext()))
+    p_off, _ = run()
+    monkeypatch.undo()
+    assert p_on.graph.nodes == p_off.graph.nodes
+    np.testing.assert_array_equal(np.array(p_on.trajectory),
+                                  np.array(p_off.trajectory))
+    pt, outs = run(trace=True)
+    names = [s.name for s in pt._tracer.sites]
+    assert names.count("lio.update.pass") == 5
+    assert names.count("lio.hth") == names.count("lio.solve") == 5
+    assert pt._tracer._n <= ttrace.STAMPS
+    for o in outs[1:]:
+        spans = o["trace"].spans
+        n = sum(s.name == "lio.update.pass" for s in spans)
+        assert n == o["iters"]
+        assert sum(s.name == "lio.hth" for s in spans) == n
+        assert sum(s.name == "lio.solve" for s in spans) == n

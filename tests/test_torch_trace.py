@@ -34,7 +34,8 @@ PARENT = {"lio.imu": "lio.scan", "lio.fov_crop": "lio.scan",
           "lio.downsample": "lio.scan", "lio.update": "lio.scan",
           "lio.insert": "lio.scan", "lio.update.pass": "lio.update",
           "lio.associate": "lio.update.pass",
-          "lio.refresh": "lio.update.pass", "lio.host.pack": "lio.scan",
+          "lio.refresh": "lio.update.pass", "lio.hth": "lio.update.pass",
+          "lio.solve": "lio.update.pass", "lio.host.pack": "lio.scan",
           "lio.host.launch": "lio.scan", "lio.host.wait": "lio.scan",
           "lio.host.record": "lio.scan", "lio.launch": "lio.scan"}
 HOST = ("lio.host.pack", "lio.host.launch", "lio.host.wait",
@@ -116,7 +117,8 @@ def test_stages_partition_the_scan(runs, program):
         total = sum(s.end_us - s.start_us for s in stages)
         assert abs(total - (stages[-1].end_us - stages[0].start_us)) < 1e-2
         for s in r["trace"].spans:
-            if s.name in ("lio.update.pass", "lio.associate", "lio.refresh"):
+            if s.name in ("lio.update.pass", "lio.associate", "lio.refresh",
+                          "lio.hth", "lio.solve"):
                 assert sp["lio.update"].start_us <= s.start_us
                 assert s.end_us <= sp["lio.update"].end_us
         host = [sp[n] for n in HOST]

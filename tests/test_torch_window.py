@@ -159,6 +159,34 @@ def _quant_scan(rng, n, m):
     return P, T, np.arange(n) < n - 5, A, G, Tt, Mk
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_scan_row_is_the_padded_scans_window_row(dtype):
+    """Per scan, the row padded and written in place (_pack_scan) is the
+    row the window wire makes of the scan padded by _pad_points /
+    _pad_imu: over scans longer than n_raw (the stride cut) and shorter,
+    with more IMU rows than n_imu and fewer, each over the row of the scan
+    two before; the two kept rows alternate."""
+    cfg = small_cfg(tcfg)
+    cfg.shapes.n_raw, cfg.shapes.n_imu, cfg.dtype = 512, 16, dtype
+    tp = LIOPipeline(cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    used = []
+    for n, m in ((1500, 16), (1100, 20), (300, 11), (40, 3), (512, 16)):
+        pts = rng.uniform(-100, 100, (n, 3))
+        pt_t = rng.uniform(0, 0.1, n)
+        acc, gyr = rng.normal(size=(m, 3)), rng.normal(size=(m, 3))
+        imu_t = np.sort(rng.uniform(0, 0.1, m))
+        got = tp._pack_scan(pts, pt_t, acc, gyr, imu_t, -0.01 * n, 0.1)
+        want = tp._pack_window([(*tp._pad_points(pts, pt_t),
+                                 *tp._pad_imu(acc, gyr, imu_t), -0.01 * n,
+                                 0.1)])
+        assert got.dtype == want.dtype == tp.dtype
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        used.append(got.data_ptr())
+    assert used[0::2] == [used[0]] * 3 and used[1::2] == [used[1]] * 2
+    assert used[0] != used[1]
+
+
 def test_quant_wire_bytes_and_decode_match_jax(monkeypatch):
     cfg = small_cfg(tcfg)
     cfg.shapes.n_raw, cfg.shapes.n_imu = 2048, 16

@@ -53,8 +53,9 @@ power limit, one line on standard error per traced call of `replay`
     ms                   mean ms of the call's wall, the device's lio.scan
                          and its stages (lio.imu, lio.fov_crop,
                          lio.downsample, lio.update, lio.insert; head_tail
-                         the rest of lio.scan; lio.associate and
-                         lio.refresh summed over the passes), the device's
+                         the rest of lio.scan; lio.associate,
+                         lio.refresh, lio.hth and lio.solve summed over
+                         the passes), the device's
                          lio.launch (from the launch mark to the first
                          stamp), the host spans (lio.host.pack, .launch, .wait,
                          .record), and on the host clock the lio.scan
@@ -298,7 +299,8 @@ def _call_row(rec: dict, wall_ms: float) -> dict:
     sp = {s.name: s for s in rec.spans}
     row = {"call": rec.scan, "wall": wall_ms}
     row.update(rec.stage_ms(("lio.scan", *STAGES, "lio.associate",
-                             "lio.refresh", "lio.launch", *HOST)))
+                             "lio.refresh", "lio.hth", "lio.solve",
+                             "lio.launch", *HOST)))
     row["launch_to_scan"] = -1e-3 * sp["lio.host.launch"].start_us
     row["scan_to_wait_end"] = 1e-3 * (sp["lio.host.wait"].end_us
                                       - sp["lio.scan"].end_us)
